@@ -1,0 +1,33 @@
+"""dasp_tpu_torch: the PyTorch / CUDA port of dasp_tpu.
+
+The JAX package ``dasp_tpu`` stays the reference; this package carries the
+same functions over to PyTorch, with the TPU's Pallas kernels replaced by
+hand-written CUDA kernels for Hopper (``csrc/``, built with ``nvcc`` at first
+use; see ``_build``). So far it covers the style-transfer render: the TCN
+encoder and parameter projectors, then ParametricEQ -> Compressor ->
+NoiseShapedReverb -> Gain. On CPU tensors the kernels' plain PyTorch
+versions run instead, so the package imports and runs without a GPU.
+
+Layouts at the public functions are the JAX package's: audio is
+(bs, ch, T), parameter tensors (bs, n_params).
+"""
+
+from . import functional, models, modules, ops
+from .functional import compressor, gain, noise_shaped_reverberation, parametric_eq
+from .modules import Compressor, Gain, NoiseShapedReverb, ParametricEQ, Processor
+
+__all__ = [
+    "functional",
+    "models",
+    "modules",
+    "ops",
+    "gain",
+    "parametric_eq",
+    "compressor",
+    "noise_shaped_reverberation",
+    "Processor",
+    "Gain",
+    "ParametricEQ",
+    "Compressor",
+    "NoiseShapedReverb",
+]

@@ -1,0 +1,221 @@
+"""The two kernel modules of dasp_tpu_torch against dasp_tpu and float64.
+
+On the CPU the wrappers ``sosfilt_pallas`` / ``lfilter1_pallas`` /
+``ballistics_pallas`` run their plain PyTorch versions; the JAX side runs the
+Pallas kernels in interpret mode. Tolerances:
+
+* biquad cascade: 2e-3 abs against ``sosfilt_pallas(interpret=True)``,
+  ``sosfilt_exact`` and float64 ``scipy.signal.sosfilt``, the bound of
+  tests/test_pallas_iir.py (fp32 state through near-unit-circle poles);
+* one-pole through the cascade: 1e-5, as tests/test_pallas_iir.py;
+* ballistics: 1e-6 relative to the curve's peak. XLA:CPU contracts the
+  update into FMAs, so the JAX reference rounds a few ulps away from the
+  per-step IEEE rounding of the plain loop (which the CUDA kernel copies
+  bitwise); the test reports whether the two are bitwise equal.
+
+The CUDA kernels themselves are tested on the card by
+tests/test_torch_gpu.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.signal
+import torch
+
+from dasp_tpu.ops import ballistics_pallas as j_ballistics_pallas
+from dasp_tpu.ops import lfilter1_exact as j_lfilter1_exact
+from dasp_tpu.ops import lfilter1_pallas as j_lfilter1_pallas
+from dasp_tpu.ops import sosfilt_exact as j_sosfilt_exact
+from dasp_tpu.ops import sosfilt_pallas as j_sosfilt_pallas
+from dasp_tpu_torch.ops import ballistics_kernel as BK
+from dasp_tpu_torch.ops import iir_kernel as IK
+from dasp_tpu_torch.ops.biquad import biquad
+
+SR = 44100
+A_TOL = 2e-3
+LF1_TOL = 1e-5
+B_TOL = 1e-6
+
+
+def make_sos(bs, sections=(("low_shelf", 4.0, 200.0, 0.7), ("peaking", -6.0, 1000.0, 2.0),
+                           ("high_shelf", 3.0, 8000.0, 0.7))):
+    secs = []
+    for ft, g, fc, q in sections:
+        b, a = biquad(torch.full((bs,), g), torch.full((bs,), fc), torch.full((bs,), q), SR, ft)
+        secs.append(torch.cat([b, a], dim=-1))
+    return torch.stack(secs, dim=1)
+
+
+def eq_sos(bs, seed):
+    """Parametric-EQ cascades (bs, 6, 6) from random normalized parameters."""
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch.modules import ParametricEQ
+
+    eq = ParametricEQ(SR)
+    p = torch.tensor(np.random.default_rng(seed).uniform(size=(bs, eq.num_params)).astype(np.float32))
+    d = eq.denormalize_param_dict(eq.extract_param_dict(p))
+    return F.parametric_eq_sos(bs, torch.float32, SR, *d.values())
+
+
+def scipy_rows(sos, x):
+    """float64 scipy reference of (bs, S, 6) sections on (bs, ch, T)."""
+    s64 = sos.double().numpy()
+    x64 = x.double().numpy()
+    return np.stack([
+        np.stack([scipy.signal.sosfilt(s64[b], x64[b, c]) for c in range(x.shape[1])])
+        for b in range(x.shape[0])
+    ])
+
+
+# ---------------------------------------------------------------------------
+# kernel A's plain version (CPU)
+# ---------------------------------------------------------------------------
+
+
+def test_sosfilt_plain_matches_jax_pallas_and_exact():
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((2, 2, 1024)) * 0.3).astype(np.float32)
+    sos = make_sos(2)
+    y_t = IK.sosfilt_pallas(sos, torch.tensor(x)).numpy()
+    y_pal = np.asarray(j_sosfilt_pallas(jnp.asarray(sos.numpy()), jnp.asarray(x),
+                                        block=128, row_tile=4, interpret=True))
+    y_ex = np.asarray(j_sosfilt_exact(jnp.asarray(sos.numpy()), jnp.asarray(x)))
+    np.testing.assert_allclose(y_t, y_pal, atol=A_TOL)
+    np.testing.assert_allclose(y_t, y_ex, atol=A_TOL)
+
+
+@pytest.mark.parametrize("bs,ch,T", [(3, 1, 1000), (1, 3, 129), (2, 2, 4096), (1, 1, 1)])
+def test_sosfilt_plain_matches_float64(bs, ch, T):
+    """Ragged T (no multiple of the 128-sample block) and odd row counts."""
+    rng = np.random.default_rng(bs * 1000 + T)
+    x = torch.tensor((rng.standard_normal((bs, ch, T)) * 0.25).astype(np.float32))
+    sos = eq_sos(bs, seed=T)
+    y = IK.sosfilt_pallas(sos, x)
+    assert y.shape == x.shape
+    np.testing.assert_allclose(y.double().numpy(), scipy_rows(sos, x), atol=A_TOL)
+
+
+def test_lfilter1_matches_jax():
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 1, 768)).astype(np.float32)
+    b = np.asarray([[0.2, 0.1], [0.3, 0.05]], np.float32)
+    a = np.asarray([[1.0, -0.95], [1.0, -0.8]], np.float32)
+    y_t = IK.lfilter1_pallas(torch.tensor(x), torch.tensor(b), torch.tensor(a)).numpy()
+    y_e = np.asarray(j_lfilter1_exact(jnp.asarray(x), jnp.asarray(b[:, None, :]), jnp.asarray(a[:, None, :])))
+    y_p = np.asarray(j_lfilter1_pallas(jnp.asarray(x), jnp.asarray(b), jnp.asarray(a),
+                                       block=128, row_tile=4, interpret=True))
+    np.testing.assert_allclose(y_t, y_e, atol=LF1_TOL)
+    np.testing.assert_allclose(y_t, y_p, atol=LF1_TOL)
+
+
+def test_sosfilt_gradients_match_jax():
+    """Autograd through the plain version and the JAX kernel's custom VJP
+    (its adjoint cascade), each against float64 autograd of the same
+    function. The gradient with respect to raw denominator coefficients is
+    ill-conditioned in fp32 (both sit ~3e-3 from float64 here), so the bound
+    is tests/test_pallas_iir.py's 1e-2 relative to the largest sos gradient,
+    and 1e-3 for the signal gradient."""
+    rng = np.random.default_rng(13)
+    x = (rng.standard_normal((2, 1, 512)) * 0.3).astype(np.float32)
+    sos = make_sos(2).numpy()
+
+    def jloss(s, xx):
+        return jnp.mean(j_sosfilt_pallas(s, xx, block=128, row_tile=4, interpret=True) ** 2)
+
+    grads_j = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(sos), jnp.asarray(x))
+
+    def torch_grads(dtype):
+        st = torch.tensor(sos, dtype=dtype, requires_grad=True)
+        xt = torch.tensor(x, dtype=dtype, requires_grad=True)
+        (IK.sosfilt_pallas(st, xt) ** 2).mean().backward()
+        return st.grad.double().numpy(), xt.grad.double().numpy()
+
+    grads_t = torch_grads(torch.float32)
+    truth = torch_grads(torch.float64)
+    for gt, gj, g64, tol in zip(grads_t, grads_j, truth, (1e-2, 1e-3)):
+        scale = np.abs(g64).max()
+        np.testing.assert_allclose(gt / scale, g64 / scale, atol=tol)
+        np.testing.assert_allclose(np.asarray(gj) / scale, g64 / scale, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# kernel B's plain version (CPU)
+# ---------------------------------------------------------------------------
+
+
+def make_g(bs=2, T=700, seed=9):
+    return -np.abs(np.random.default_rng(seed).standard_normal((bs, 1, T))).astype(np.float32)
+
+
+@pytest.mark.parametrize("with_y0", [False, True])
+def test_ballistics_plain_matches_jax_pallas(with_y0, record_property):
+    g = make_g(bs=3, T=1000)
+    aa = np.asarray([0.9, 0.85, 0.5], np.float32)
+    ar = np.asarray([0.99, 0.995, 0.9], np.float32)
+    y0 = (-np.abs(np.random.default_rng(2).standard_normal((3, 1)))).astype(np.float32) if with_y0 else None
+    y_t, (yf_t, _) = BK.ballistics_pallas(
+        torch.tensor(g), torch.tensor(aa), torch.tensor(ar),
+        y0=None if y0 is None else torch.tensor(y0), return_yf=True,
+    )
+    y_j, (yf_j, _) = j_ballistics_pallas(
+        jnp.asarray(g), jnp.asarray(aa), jnp.asarray(ar), time_block=256, interpret=True,
+        y0=None if y0 is None else jnp.asarray(y0), return_yf=True,
+    )
+    bitwise = bool(np.array_equal(y_t.numpy(), np.asarray(y_j)))
+    record_property("bitwise_equal_to_jax", bitwise)
+    print(f"ballistics plain vs JAX kernel (interpret): bitwise={bitwise}, "
+          f"max diff {np.abs(y_t.numpy() - np.asarray(y_j)).max():.3e}")
+    peak = np.abs(g).max()
+    np.testing.assert_allclose(y_t.numpy() / peak, np.asarray(y_j) / peak, atol=B_TOL)
+    np.testing.assert_array_equal(yf_t.numpy(), y_t.numpy()[..., -1])
+    np.testing.assert_allclose(yf_t.numpy() / peak, np.asarray(yf_j) / peak, atol=B_TOL)
+
+
+def test_ballistics_chunk_chained_is_bitwise_one_pass():
+    g = torch.tensor(make_g(bs=2, T=999))
+    aa, ar = torch.tensor([0.9, 0.7]), torch.tensor([0.99, 0.98])
+    y = BK.ballistics_pallas(g, aa, ar)
+    y0, parts = None, []
+    for a, b in ((0, 100), (100, 613), (613, 999)):
+        part, (y0, _) = BK.ballistics_pallas(g[..., a:b], aa, ar, y0=y0, return_yf=True)
+        parts.append(part)
+    assert torch.equal(torch.cat(parts, dim=-1), y)
+
+
+def test_ballistics_gradients_match_jax():
+    g = make_g()
+    aa, ar = np.full((2,), 0.9, np.float32), np.full((2,), 0.99, np.float32)
+
+    def jloss(g, aa, ar):
+        return jnp.mean(j_ballistics_pallas(g, aa, ar, time_block=256, interpret=True) ** 2)
+
+    grads_j = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(g), jnp.asarray(aa), jnp.asarray(ar))
+    ts = [torch.tensor(v, requires_grad=True) for v in (g, aa, ar)]
+    (BK.ballistics_pallas(*ts) ** 2).mean().backward()
+    for t_, gj in zip(ts, grads_j):
+        np.testing.assert_allclose(t_.grad.numpy(), np.asarray(gj), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    a0, b0 = IK.sosfilt_pallas.launches, BK.ballistics_pallas.launches
+    x = torch.randn(2, 1, 300)
+    assert torch.equal(IK.sosfilt_pallas(make_sos(2), x), IK.sosfilt_plain(make_sos(2), x))
+    g = torch.tensor(make_g())
+    assert torch.equal(BK.ballistics_pallas(g, 0.9 * torch.ones(2), 0.99 * torch.ones(2)),
+                       BK.ballistics_plain(g, 0.9 * torch.ones(2), 0.99 * torch.ones(2)))
+    assert (IK.sosfilt_pallas.launches, BK.ballistics_pallas.launches) == (a0, b0)
+
+
+def test_other_devices_raise():
+    x = torch.empty(2, 1, 64, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        IK.sosfilt_pallas(make_sos(2).to("meta"), x)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        BK.ballistics_pallas(x, torch.ones(2), torch.ones(2))
