@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
 The kernels live in ``csrc/*.cu`` as plain C entry points. At first use
-this module compiles all of them with ``nvcc`` into one shared library for
-Hopper (``sm_90a``), stores it in ``_build/`` beside this file under a name
-that carries a hash of the sources and flags, and loads it with ``ctypes``.
-A later call in the same process reuses the loaded library; a later process
+this module compiles each source with its own ``nvcc`` process, all started
+together, links the objects into one shared library for Hopper
+(``sm_90a``), stores it in ``_build/`` beside this file under a name that
+carries a hash of the sources and flags, and loads it with ``ctypes``. A
+later call in the same process reuses the loaded library; a later process
 finds the cached file and skips the compile. Nothing here runs at import
 time, and nothing needs PyTorch's C++ headers, so a build takes seconds.
 
@@ -29,18 +30,23 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, into build.log
 )
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_T = ctypes.c_longlong
 # entry point -> (argtypes, restype)
 _SIGNATURES = {
-    "sosfilt_cascade_f32": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P], ctypes.c_int),
-    "sosfilt_cascade_max_sections": ([], ctypes.c_int),
-    "ballistics_f32": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P], ctypes.c_int),
+    "sosfilt_cascade_f32": ([_P, _P, _P, _I, _I, _T, _P], _I),
+    "sosfilt_cascade_save_all_f32": ([_P, _P, _P, _I, _I, _T, _P], _I),
+    "sosfilt_cascade_adjoint_f32": ([_P, _P, _P, _I, _I, _T, _P], _I),
+    "sosfilt_cascade_max_sections": ([], _I),
+    "ballistics_f32": ([_P, _P, _P, _P, _P, _I, _T, _P], _I),
+    "ballistics_bwd_f32": ([_P] * 10 + [_I, _T, _P], _I),
 }
 
 _log = {"nvcc": ""}
@@ -78,24 +84,38 @@ def library() -> ctypes.CDLL:
     out = BUILD_DIR / f"dasp_kernels_{_digest(srcs)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # compile to a private name, then rename: a concurrent process never
-        # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _log["nvcc"] = proc.stdout + proc.stderr
-        (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + _log["nvcc"])
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_log['nvcc']}")
-        os.replace(tmp, out)
+        # compile into a private directory, then rename the library: a
+        # concurrent process never loads a half-written one
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            _compile_and_link(srcs, Path(tmp), out)
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def _compile_and_link(srcs, tmp: Path, out: Path) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link."""
+    nvcc = _nvcc()
+    objs = [tmp / f"{src.stem}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)] for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *GENCODE, "-shared", "-o", str(tmp / "lib.so"), *map(str, objs)]
+    failed = [" ".join(c) for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout)
+        if proc.returncode != 0:
+            failed.append(" ".join(link))
+    _log["nvcc"] = "\n".join(" ".join(c) + "\n" + log for c, log in zip(cmds + [link], logs))
+    (BUILD_DIR / "build.log").write_text(_log["nvcc"])
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}\n{_log['nvcc']}")
+    os.replace(tmp / "lib.so", out)
 
 
 def build_log() -> str:

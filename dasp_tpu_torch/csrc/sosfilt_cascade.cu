@@ -1,116 +1,18 @@
-// Exact biquad-cascade filter over rows: the port of kernel A.
+// Kernel A in its forward use: the exact biquad cascade, last section's
+// output only.
 //
 // Replaces: dasp_tpu/ops/pallas_iir.py, _sosfilt_wavefront_kernel (launched
-// by _sosfilt_pallas_fwd_impl), in its forward use (save_all=False). It
-// computes the same function: every row r of x (R, T) runs through S
-// second-order sections [b0, b1, b2, a0(=1), a1, a2], section after section,
-// with zero initial state.
-//
-// What bounds it on an H100: the serial chain of T * S dependent
-// multiply-adds per row. Bytes are not the limit: the style-transfer EQ reads
-// and writes 8 rows x 131072 samples x 4 B = 4 MB each way, a microsecond of
-// HBM bandwidth. With only R = bs * ch = 8 rows, 8 threads run on a 132-SM
-// card, so nearly all of the chip idles. Measured on an H100, the kernel
-// also waits on each thread's own loads: 7.9 ms per call with x resident in
-// L2, 10.4 ms inside the render, where the encoder has likely pushed x out
-// of L2. The arithmetic chain alone (per sample, S sections of about two
-// dependent FMAs of 4 cycles) is an estimated third of that.
-//
-// What the design does about it: one thread owns one row and walks its
-// samples in order. All S sections advance on each sample, in direct form I
-// (y = b0 x + b1 x[-1] + b2 x[-2] - a1 y[-1] - a2 y[-2], as in
-// dasp_tpu/ops/iir.py _sos_section_exact), with the coefficients loaded once
-// and the 4 history samples of every section held in registers (S is a
-// template parameter, so the section loop unrolls and nothing spills to local
-// memory). Only x is read and y written, once each; T may have any length and
-// nothing is padded. The TPU kernel's 128x128 Toeplitz blocks, (8, 128)
-// padding and wavefront ring are not carried over: they fed the TPU's matrix
-// unit, and here the recursion is cheaper evaluated directly. Later work:
-// stage chunks of the row ahead of the chain to hide the load latency, and
-// spread the time axis over many blocks with a block-state carry to use
-// more of the card.
-//
-// The sum is formed with FMA contraction, so it rounds differently from the
-// block-Toeplitz evaluation; callers hold it against float64.
+// by _sosfilt_pallas_fwd_impl) with save_all=False. The kernel template, its
+// bound on an H100 and its design are in sosfilt_cascade.cuh.
 
-#include <cuda_runtime.h>
+#include "sosfilt_cascade.cuh"
 
-namespace {
-
-constexpr int kThreads = 32;
-
-template <int S>
-__global__ void sosfilt_cascade_kernel(const float* __restrict__ sos,
-                                       const float* __restrict__ x,
-                                       float* __restrict__ y,
-                                       int rows, long long T) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-
-  float b0[S], b1[S], b2[S], a1[S], a2[S];
-  float xm1[S], xm2[S], ym1[S], ym2[S];
-  const float* c = sos + static_cast<long long>(r) * S * 6;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    b0[s] = c[6 * s + 0];
-    b1[s] = c[6 * s + 1];
-    b2[s] = c[6 * s + 2];
-    a1[s] = c[6 * s + 4];
-    a2[s] = c[6 * s + 5];
-    xm1[s] = 0.f;
-    xm2[s] = 0.f;
-    ym1[s] = 0.f;
-    ym2[s] = 0.f;
-  }
-
-  const float* xr = x + static_cast<long long>(r) * T;
-  float* yr = y + static_cast<long long>(r) * T;
-#pragma unroll 4
-  for (long long t = 0; t < T; ++t) {
-    float v = xr[t];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float out = b0[s] * v + b1[s] * xm1[s] + b2[s] * xm2[s]
-                        - a1[s] * ym1[s] - a2[s] * ym2[s];
-      xm2[s] = xm1[s];
-      xm1[s] = v;
-      ym2[s] = ym1[s];
-      ym1[s] = out;
-      v = out;
-    }
-    yr[t] = v;
-  }
-}
-
-template <int S>
-void launch(const float* sos, const float* x, float* y, int rows, long long T,
-            cudaStream_t stream) {
-  const int blocks = (rows + kThreads - 1) / kThreads;
-  sosfilt_cascade_kernel<S><<<blocks, kThreads, 0, stream>>>(sos, x, y, rows, T);
-}
-
-}  // namespace
-
-// Largest section count with an instantiated kernel; the wrapper checks it.
-extern "C" int sosfilt_cascade_max_sections() { return 16; }
+extern "C" int sosfilt_cascade_max_sections() { return dasp::kMaxSections; }
 
 // sos: (rows, S, 6) fp32, x and y: (rows, T) fp32, all contiguous on the
 // device. Launches on `stream` and returns cudaGetLastError() as an int.
 extern "C" int sosfilt_cascade_f32(const float* sos, const float* x, float* y,
                                    int rows, int S, long long T, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (S) {
-#define DASP_CASE(n) \
-  case n:            \
-    launch<n>(sos, x, y, rows, T, st); \
-    break;
-    DASP_CASE(1) DASP_CASE(2) DASP_CASE(3) DASP_CASE(4)
-    DASP_CASE(5) DASP_CASE(6) DASP_CASE(7) DASP_CASE(8)
-    DASP_CASE(9) DASP_CASE(10) DASP_CASE(11) DASP_CASE(12)
-    DASP_CASE(13) DASP_CASE(14) DASP_CASE(15) DASP_CASE(16)
-#undef DASP_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dasp::launch_cascade<false, false>(sos, x, y, rows, S, T,
+                                            static_cast<cudaStream_t>(stream));
 }

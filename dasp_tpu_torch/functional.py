@@ -4,8 +4,7 @@ PyTorch counterpart of the parts of ``dasp_tpu/functional.py`` that the
 style-transfer render runs through: ``gain``, ``parametric_eq``,
 ``compressor`` and ``noise_shaped_reverberation``. Parameters are tensors of
 shape (bs,) (or Python scalars); gradients flow to them and to the audio
-by autograd, except through the CUDA kernels, whose backward is not ported
-yet.
+by autograd, and through the CUDA kernels by their backward kernels.
 
 Option strings keep the JAX package's spelling so that a configuration
 means the same in both packages. ``filter_method="pallas"``,

@@ -11,7 +11,9 @@ JAX package's ``StyleTransferNet`` (nested dicts of numpy arrays) onto the
 * PReLU ``negative_slope`` () -> ``weight`` (1,).
 
 Every flax leaf is used exactly once; a leaf left over, or a torch key that
-gets no value, raises ``ValueError``.
+gets no value, raises ``ValueError``. Any tree of the same layout converts
+the same way: the tests map flax gradients, Adam-updated parameters and new
+``batch_stats`` onto torch names to compare a training step leaf by leaf.
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def _torch_key_or_raise(path: tuple) -> str:
     return ".".join(parts + [name, leaf])
 
 
-def _torch_value(path: tuple, arr: np.ndarray) -> torch.Tensor:
+def _torch_value(path: tuple, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     layer, leaf = path[-2], path[-1]
     if leaf == "kernel" and layer.startswith("Conv"):
         arr = arr.transpose(2, 1, 0)  # (k, in, out) -> (out, in, k)
@@ -82,10 +84,12 @@ def _torch_value(path: tuple, arr: np.ndarray) -> torch.Tensor:
         arr = arr.T  # (in, out) -> (out, in)
     elif layer.startswith("PReLU"):
         arr = arr.reshape(1)
-    return torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    return torch.tensor(np.ascontiguousarray(arr), dtype=dtype)
 
 
-def style_net_from_flax(variables, net: torch.nn.Module | None = None) -> "OrderedDict[str, torch.Tensor]":
+def style_net_from_flax(
+    variables, net: torch.nn.Module | None = None, dtype: torch.dtype = torch.float32
+) -> "OrderedDict[str, torch.Tensor]":
     """Convert flax ``StyleTransferNet`` variables into a torch state_dict.
 
     Args:
@@ -93,6 +97,9 @@ def style_net_from_flax(variables, net: torch.nn.Module | None = None) -> "Order
             arrays (e.g. ``jax.device_get(net.init(...))``).
         net: optional torch ``StyleTransferNet`` to check against: its
             state_dict keys and shapes must match exactly.
+        dtype: of the floating-point tensors (float32 for a net's weights;
+            float64 to compare float64 trees, e.g. gradients or
+            Adam-updated parameters).
 
     Returns:
         An ``OrderedDict`` ready for ``net.load_state_dict(..., strict=True)``.
@@ -110,7 +117,7 @@ def style_net_from_flax(variables, net: torch.nn.Module | None = None) -> "Order
         key = _torch_key(tuple(path))
         if key in state:
             raise ValueError(f"two flax leaves map to {key!r}")
-        state[key] = _torch_value(tuple(path), arr)
+        state[key] = _torch_value(tuple(path), arr, dtype)
     bns = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
     for bn in sorted(bns):
         state[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)

@@ -7,9 +7,18 @@ JAX package's ``VALID``). Each block has two PReLUs of one slope each,
 initialised to 0.01 as flax's are. ``models.convert`` carries flax weights
 over.
 
-``dtype=torch.bfloat16`` runs the convolutions in bf16 (inputs and weights
-cast at the call) while parameters, PReLU, BatchNorm and the time mean stay
-in fp32.
+BatchNorm follows flax's ``nn.BatchNorm`` (see :class:`BatchNorm`): in
+train mode it normalizes with the biased batch statistics and moves the
+running statistics by momentum 0.99 (torch's ``momentum=0.01``) toward the
+batch mean and the *biased* batch variance.
+
+``dtype=torch.bfloat16`` computes as flax's ``dtype=jnp.bfloat16`` does:
+the convolutions take bf16 inputs and weights (cast at the call), their
+bf16 outputs go through PReLU (slope cast to bf16) and BatchNorm, whose
+statistics and normalization are taken in fp32 and whose output is cast
+back to bf16, so activations stay bf16 from one convolution to the next.
+Parameters and statistics stay fp32; the encoder's time mean is taken in
+fp32.
 """
 
 from __future__ import annotations
@@ -20,7 +29,47 @@ import torch
 import torch.nn.functional as nnf
 from torch import nn
 
-__all__ = ["TCNBlock", "Encoder", "ParameterProjector"]
+__all__ = ["BatchNorm", "TCNBlock", "Encoder", "ParameterProjector"]
+
+# flax nn.BatchNorm's momentum: running = 0.99 * running + 0.01 * batch
+FLAX_MOMENTUM = 0.99
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or in its own dtype if that is wider (float64 runs)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax ``nn.BatchNorm``'s conventions.
+
+    Same parameters and buffers as ``nn.BatchNorm1d`` (so state dicts carry
+    over), with ``momentum=0.01`` in torch's sense and eps 1e-5. Train mode
+    normalizes with the biased batch mean and variance and updates the
+    running statistics as flax does: ``running = 0.99 * running + 0.01 *
+    batch`` with the biased variance (``nn.BatchNorm1d`` feeds the unbiased
+    one). Statistics are reduced in fp32 and the output has the input's
+    dtype, so a bf16 activation stays bf16. Each call in train mode updates
+    the statistics once, so a module called twice in one forward updates
+    them twice in sequence, as flax does.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=1.0 - FLAX_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            with torch.no_grad():
+                var, mean = torch.var_mean(_at_least_f32(x), dim=(0, 2), unbiased=False)
+                m = FLAX_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked.add_(1)
+            return nnf.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+        return nnf.batch_norm(
+            x, self.running_mean, self.running_var, self.weight, self.bias,
+            training=False, eps=self.eps,
+        )
 
 
 class TCNBlock(nn.Module):
@@ -33,23 +82,23 @@ class TCNBlock(nn.Module):
         self.dtype = dtype
         self.conv0 = nn.Conv1d(in_channels, out_channels, kernel_size, stride=2, dilation=dilation)
         self.prelu0 = nn.PReLU(init=0.01)
-        self.bn0 = nn.BatchNorm1d(out_channels, eps=1e-5)
+        self.bn0 = BatchNorm(out_channels)
         self.conv1 = nn.Conv1d(out_channels, out_channels, kernel_size)
         self.prelu1 = nn.PReLU(init=0.01)
-        self.bn1 = nn.BatchNorm1d(out_channels, eps=1e-5)
+        self.bn1 = BatchNorm(out_channels)
 
-    def _conv(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    def _layer(self, conv: nn.Conv1d, prelu: nn.PReLU, bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is None:
-            return conv(x)
-        y = nnf.conv1d(
+            return bn(prelu(conv(x)))
+        h = nnf.conv1d(
             x.to(self.dtype), conv.weight.to(self.dtype), conv.bias.to(self.dtype),
             stride=conv.stride, dilation=conv.dilation,
         )
-        return y.float()
+        return bn(nnf.prelu(h, prelu.weight.to(self.dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn0(self.prelu0(self._conv(self.conv0, x)))
-        return self.bn1(self.prelu1(self._conv(self.conv1, x)))
+        x = self._layer(self.conv0, self.prelu0, self.bn0, x)
+        return self._layer(self.conv1, self.prelu1, self.bn1, x)
 
 
 class Encoder(nn.Module):
@@ -75,7 +124,7 @@ class Encoder(nn.Module):
         h = x
         for block in self.blocks:
             h = block(h)
-        h = h.float().mean(dim=-1)
+        h = _at_least_f32(h).mean(dim=-1)
         h = torch.relu(self.dense0(h))
         h = torch.relu(self.dense1(h))
         return self.dense2(h)

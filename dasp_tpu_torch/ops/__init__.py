@@ -1,8 +1,8 @@
 """Signal primitives: filter design, FFT convolution, IIR building blocks
-and the two hand-written CUDA kernels. PyTorch counterpart of
+and the hand-written CUDA kernels with their backward. PyTorch counterpart of
 ``dasp_tpu/ops`` (the parts the style-transfer render runs through)."""
 
-from .ballistics_kernel import ballistics_pallas, ballistics_plain
+from .ballistics_kernel import ballistics_bwd_rows_plain, ballistics_pallas, ballistics_plain
 from .biquad import biquad
 from .fft_filter import next_fast_len, next_pow2
 from .filterbank import NUM_OCTAVE_BANDS, OCTAVE_BAND_CENTERS, octave_band_filterbank
@@ -15,7 +15,13 @@ from .iir import (
     onepole_ba,
     stabilize_sos,
 )
-from .iir_kernel import lfilter1_pallas, sosfilt_pallas, sosfilt_plain
+from .iir_kernel import (
+    adjoint_sos,
+    lfilter1_pallas,
+    sosfilt_pallas,
+    sosfilt_plain,
+    sosfilt_rows_grad_plain,
+)
 
 __all__ = [
     "biquad",
@@ -34,7 +40,10 @@ __all__ = [
     "stabilize_sos",
     "sosfilt_pallas",
     "sosfilt_plain",
+    "sosfilt_rows_grad_plain",
+    "adjoint_sos",
     "lfilter1_pallas",
     "ballistics_pallas",
     "ballistics_plain",
+    "ballistics_bwd_rows_plain",
 ]

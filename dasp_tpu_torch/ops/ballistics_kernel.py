@@ -1,4 +1,5 @@
-"""Exact branching attack/release smoother: CUDA kernel and plain version.
+"""Exact branching attack/release smoother and its gradient: CUDA kernels
+and plain versions.
 
 PyTorch counterpart of ``dasp_tpu/ops/pallas_ballistics.py``. The
 recursion, per row,
@@ -12,9 +13,31 @@ for tensors on the CPU. Both round every step the same way, so the kernel is
 bitwise equal to the plain loop, and chunk-chained evaluation through ``y0``
 is bitwise equal to one pass.
 
+The gradient is the anticausal adjoint of the recursion with the branch
+pattern held fixed (as autograd through ``torch.where`` does), recomputed
+from the saved output:
+
+    lam[n]    = ct[n] + alpha[n+1] * lam[n+1]
+    dg[n]     = (1 - alpha[n]) * lam[n]
+    dalpha[n] = lam[n] * y[n-1] - lam[n] * g[n]   -> daa or dar by branch
+    dy0       = alpha[0] * lam[0]
+
+It runs in ``csrc/ballistics_bwd.cu`` on a CUDA device and in
+:func:`ballistics_bwd_rows_plain`, a reverse loop, on the CPU. Both round
+as autograd does through the plain forward (daa and dar are serial fp32
+sums from the last sample back, as autograd and the TPU kernel accumulate
+them), so kernel, loop and autograd are bitwise equal. Chunk-chained
+evaluation gives the one-pass dg and dy0 bitwise; its daa and dar sum the
+same terms in another association (one partial sum per chunk). The same
+autograd Function runs on both devices with either engine. :func:`ballistics_plain` (autograd
+through the plain loop) stays the independent reference.
+
+Launches are counted per kernel: ``ballistics_pallas.launches`` (forward)
+and ``ballistics_pallas.bwd_launches`` (backward).
+
 The name ``ballistics_pallas`` is kept from the JAX package so that the
 option string ``smoother="exact_pallas"`` means the same in both packages;
-in this package it selects the CUDA kernel.
+in this package it selects the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +46,12 @@ import torch
 
 from .. import _build
 
-__all__ = ["ballistics_pallas", "ballistics_plain", "ballistics_rows_plain"]
+__all__ = [
+    "ballistics_pallas",
+    "ballistics_plain",
+    "ballistics_rows_plain",
+    "ballistics_bwd_rows_plain",
+]
 
 
 def ballistics_rows_plain(
@@ -43,39 +71,98 @@ def ballistics_rows_plain(
     return torch.stack(out, dim=-1)
 
 
-def _launch(g: torch.Tensor, aa: torch.Tensor, ar: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
-    R, T = g.shape
-    y = torch.empty_like(g)
-    if R == 0 or T == 0:
+def ballistics_bwd_rows_plain(y, g, aa, ar, y0, ct):
+    """The plain backward: a reverse loop over time on (R, T) rows.
+
+    Args:
+        y: the forward output; g: its input curve; ct: the cotangent of y,
+            each (R, T). aa, ar, y0: (R,).
+
+    Returns:
+        (dg (R, T), daa (R,), dar (R,), dy0 (R,)), rounded step by step in
+        the kernel's order (which is autograd's through
+        :func:`ballistics_rows_plain`).
+    """
+    T = g.shape[-1]
+    lam_next = torch.zeros_like(y0)  # alpha[n+1] * lam[n+1]
+    daa = torch.zeros_like(y0)
+    dar = torch.zeros_like(y0)
+    dg = []
+    for n in range(T - 1, -1, -1):
+        g_n = g[:, n]
+        y_prev = y[:, n - 1] if n > 0 else y0
+        attack = g_n < y_prev
+        alpha = torch.where(attack, aa, ar)
+        lam = ct[:, n] + lam_next
+        dg.append((1.0 - alpha) * lam)
+        dalpha = lam * y_prev - lam * g_n
+        daa = torch.where(attack, daa + dalpha, daa)
+        dar = torch.where(attack, dar, dar + dalpha)
+        lam_next = alpha * lam
+    dg = torch.stack(dg[::-1], dim=-1) if dg else torch.zeros_like(g)
+    return dg, daa, dar, lam_next
+
+
+class _PlainEngine:
+    forward = staticmethod(ballistics_rows_plain)
+    backward = staticmethod(ballistics_bwd_rows_plain)
+
+
+class _CudaEngine:
+    @staticmethod
+    def forward(g, aa, ar, y0):
+        R, T = g.shape
+        y = torch.empty_like(g)
+        if R == 0 or T == 0:
+            return y
+        lib = _build.library()
+        with torch.cuda.device(g.device):
+            stream = torch.cuda.current_stream(g.device).cuda_stream
+            err = lib.ballistics_f32(
+                g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(), y.data_ptr(),
+                R, T, stream,
+            )
+        _build.check(err, "ballistics_f32")
+        ballistics_pallas.launches += 1
         return y
-    lib = _build.library()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.ballistics_f32(
-            g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(), y.data_ptr(),
-            R, T, stream,
-        )
-    _build.check(err, "ballistics_f32")
-    ballistics_pallas.launches += 1
-    return y
+
+    @staticmethod
+    def backward(y, g, aa, ar, y0, ct):
+        R, T = g.shape
+        dg = torch.empty_like(g)
+        daa, dar, dy0 = (torch.zeros_like(y0) for _ in range(3))
+        if R == 0 or T == 0:
+            return dg, daa, dar, dy0
+        lib = _build.library()
+        with torch.cuda.device(g.device):
+            stream = torch.cuda.current_stream(g.device).cuda_stream
+            err = lib.ballistics_bwd_f32(
+                y.data_ptr(), g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(),
+                ct.data_ptr(), dg.data_ptr(), daa.data_ptr(), dar.data_ptr(), dy0.data_ptr(),
+                R, T, stream,
+            )
+        _build.check(err, "ballistics_bwd_f32")
+        ballistics_pallas.bwd_launches += 1
+        return dg, daa, dar, dy0
 
 
 class _BallisticsKernel(torch.autograd.Function):
-    """Forward runs the CUDA kernel; the backward kernel (the anticausal
-    adjoint of dasp_tpu/ops/pallas_ballistics.py _bwd_kernel) is not
-    ported yet."""
+    """The smoother with its adjoint gradient on (R, T) rows, evaluated by
+    ``engine`` (CUDA kernels or plain loops)."""
 
     @staticmethod
-    def forward(ctx, g, aa, ar, y0):
-        return _launch(g, aa, ar, y0)
+    def forward(ctx, g, aa, ar, y0, engine):
+        y = engine.forward(g, aa, ar, y0)
+        ctx.save_for_backward(y, g, aa, ar, y0)
+        ctx.engine = engine
+        return y
 
     @staticmethod
-    def backward(ctx, grad_y):
-        raise NotImplementedError(
-            "the ballistics kernel has no backward yet: it comes with the "
-            "training step (ROADMAP.md Queue 2, kernel B backward). For "
-            "gradients on the GPU use smoother='exact' (plain autograd)."
-        )
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        y, g, aa, ar, y0 = ctx.saved_tensors
+        grads = ctx.engine.backward(y, g, aa, ar, y0, ct.contiguous())
+        return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad)), None)
 
 
 def _check_cuda(g: torch.Tensor) -> None:
@@ -111,7 +198,8 @@ def _finish(y_rows, g, return_yf):
 
 
 def ballistics_plain(g, alpha_attack, alpha_release, y0=None, return_yf=False):
-    """:func:`ballistics_pallas` evaluated by the plain loop on any device."""
+    """:func:`ballistics_pallas` evaluated by the plain loop on any device,
+    differentiated by autograd through it."""
     rows = _rows(g, alpha_attack, alpha_release, y0)
     return _finish(ballistics_rows_plain(*rows), g, return_yf)
 
@@ -119,8 +207,9 @@ def ballistics_plain(g, alpha_attack, alpha_release, y0=None, return_yf=False):
 def ballistics_pallas(g, alpha_attack, alpha_release, y0=None, return_yf=False):
     """Exact branching attack/release smoother (see the module docstring).
 
-    On a CUDA tensor this launches the CUDA kernel (forward only: backward
-    raises ``NotImplementedError``); on a CPU tensor it runs the plain loop.
+    On a CUDA tensor this launches the CUDA kernels; on a CPU tensor it runs
+    the plain loops. Differentiable with respect to g, both coefficients and
+    y0 by the adjoint recursion (one backward launch).
 
     Args:
         g: gain-reduction curve, shape (bs, ch, T); on CUDA float32 and
@@ -135,12 +224,20 @@ def ballistics_pallas(g, alpha_attack, alpha_release, y0=None, return_yf=False):
         ``(y, (yf, yf))``.
     """
     if g.device.type == "cpu":
-        return ballistics_plain(g, alpha_attack, alpha_release, y0, return_yf)
-    if g.device.type != "cuda":
+        engine = _PlainEngine
+    elif g.device.type == "cuda":
+        _check_cuda(g)
+        engine = _CudaEngine
+    else:
         raise ValueError(f"ballistics_pallas runs on CPU or CUDA tensors, not {g.device}")
-    _check_cuda(g)
     rows = _rows(g, alpha_attack, alpha_release, y0)
-    return _finish(_BallisticsKernel.apply(*rows), g, return_yf)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in rows):
+        y = _BallisticsKernel.apply(*rows, engine)
+    else:
+        y = engine.forward(*rows)
+    return _finish(y, g, return_yf)
 
 
-ballistics_pallas.launches = 0  # kernel launches, counted in _launch
+# kernel launches by kernel, counted in _CudaEngine
+ballistics_pallas.launches = 0
+ballistics_pallas.bwd_launches = 0

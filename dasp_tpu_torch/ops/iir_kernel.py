@@ -1,11 +1,14 @@
-"""Exact biquad-cascade filtering: CUDA kernel and plain version.
+"""Exact biquad-cascade filtering and its gradient: CUDA kernel and plain
+version.
 
-PyTorch counterpart of ``dasp_tpu/ops/pallas_iir.py`` (forward). For
-tensors on a CUDA device the cascade runs in the hand-written kernel
-``csrc/sosfilt_cascade.cu``: one thread per row walks time in order and
-advances all sections per sample in direct form I. For tensors on the CPU
-it runs :func:`sosfilt_rows_plain`, the block-state formulation the TPU
-kernel computes: per block of L samples,
+PyTorch counterpart of ``dasp_tpu/ops/pallas_iir.py``. For tensors on a
+CUDA device the cascade runs in the hand-written kernel of
+``csrc/sosfilt_cascade.cuh`` (entry points ``sosfilt_cascade.cu``,
+``sosfilt_cascade_save_all.cu`` and ``sosfilt_cascade_adjoint.cu``): one
+thread per row walks time and advances all sections per sample in direct
+form I. For tensors on the CPU it runs
+:func:`sosfilt_rows_plain`, the block-state formulation the TPU kernel
+computes: per block of L samples,
 
     y[k] = sum_{j<=k} h[k-j] f[j] + h[k+1] y[-1] - a2 h[k] y[-2]
 
@@ -14,6 +17,22 @@ the intra-block Toeplitz products of all blocks are one batched matmul and
 the two carried samples go through a loop over blocks. The two evaluations
 round differently (recursion with FMA against Toeplitz sums), so each is
 held against float64 ``scipy.signal.sosfilt``.
+
+Gradients (the TPU kernel's custom VJP, ``_rows_fwd`` / ``_rows_bwd``):
+when a gradient is needed the forward runs the cascade in its save-all
+form, keeping every section's output (S, R, T). The backward runs the SAME
+cascade once more, save-all, over the (S+1)-section adjoint cascade in
+flipped time (:func:`adjoint_sos`), which yields every section's adjoint
+lambda and dL/dx; the coefficient gradients are then correlations,
+db_k = sum lambda[n] u[n-k] and da_j = -sum lambda[n] y[n-j]. The same
+autograd Function runs on both devices: the CUDA kernel is one engine,
+the plain block-state version the other, so the CPU tests exercise the
+adjoint formulas themselves. :func:`sosfilt_plain` (autograd through the
+plain forward) stays the independent reference.
+
+Three uses of the kernel are counted apart: ``sosfilt_pallas.launches``
+(forward), ``.save_all_launches`` (forward with residuals) and
+``.adjoint_launches`` (backward).
 
 The names ``sosfilt_pallas`` / ``lfilter1_pallas`` are kept from the JAX
 package so that ``filter_method="pallas"`` and ``smoother="pallas"`` mean
@@ -29,15 +48,25 @@ import torch
 from .. import _build
 from .iir import block_toeplitz_operators, embed_first_order_sos, stabilize_sos
 
-__all__ = ["sosfilt_pallas", "lfilter1_pallas", "sosfilt_plain", "sosfilt_rows_plain"]
+__all__ = [
+    "sosfilt_pallas",
+    "lfilter1_pallas",
+    "sosfilt_plain",
+    "sosfilt_rows_plain",
+    "sosfilt_rows_grad_plain",
+    "adjoint_sos",
+]
 
 # time block of the plain version: the TPU kernel's 128-sample block
 BLOCK = 128
 
 
-def sosfilt_rows_plain(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def sosfilt_rows_plain(sos: torch.Tensor, x: torch.Tensor, save_all: bool = False) -> torch.Tensor:
     """The plain version on (R, T) rows with (R, S, 6) sections (no
-    stabilization here). Differentiable by autograd, on any device."""
+    stabilization here). Differentiable by autograd, on any device.
+
+    Returns the last section's output (R, T), or with ``save_all`` every
+    section's output (S, R, T)."""
     R, T = x.shape
     S = sos.shape[1]
     L = BLOCK
@@ -45,6 +74,7 @@ def sosfilt_rows_plain(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     y = torch.nn.functional.pad(x, (0, pad_t))
     nb = y.shape[-1] // L
     _, Tt, h1, h2 = block_toeplitz_operators(sos, L)
+    outs = []
     for s in range(S):
         b = sos[:, s, :3]
         x1 = torch.nn.functional.pad(y, (1, 0))[:, :-1]
@@ -59,13 +89,77 @@ def sosfilt_rows_plain(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             ym1, ym2 = y_i[:, L - 1], y_i[:, L - 2]
             blocks.append(y_i)
         y = torch.stack(blocks, dim=1).reshape(R, nb * L)
+        outs.append(y[:, :T])
+    if save_all:
+        return torch.stack(outs) if outs else x.new_zeros((0, R, T))
     return y[:, :T]
 
 
-def _launch(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def adjoint_sos(sos: torch.Tensor) -> torch.Tensor:
+    """The (R, S+1, 6) adjoint cascade of (R, S, 6) sections, run in flipped
+    time on the cotangent (``_rows_bwd``, pallas_iir.py:259-317):
+
+        section 0:  b = [1, 0, 0],  a = A_{S-1}   -> lambda_{S-1}
+        section j:  b = B_{S-j},    a = A_{S-1-j} -> lambda_{S-1-j}
+        section S:  b = B_0,        a = [1, 0, 0] -> dL/dx
+    """
+    b = sos[..., :3]
+    a = sos[..., 3:]
+    unit = torch.zeros_like(a[:, :1])
+    unit[..., 0] = 1.0
+    return torch.cat(
+        [torch.cat([unit, b.flip(1)], dim=1), torch.cat([a.flip(1), unit], dim=1)], dim=-1
+    )
+
+
+def _vjp(sos, x, inters, grad_y, adjoint):
+    """(dsos, dx) of the cascade from the forward residuals ``inters``
+    (S, R, T) and one save-all pass of ``adjoint`` over the adjoint cascade;
+    ``adjoint(adj_sos, g)`` returns its (S+1, R, T) outputs in forward time."""
+    S = sos.shape[1]
+    T = x.shape[-1]
+    outs = adjoint(adjoint_sos(sos).contiguous(), grad_y)
+    lam = outs[:S].flip(0)  # lam[s], s = 0..S-1
+    u = torch.cat([x[None], inters[:-1]])  # section inputs (S, R, T)
+
+    def corr(z, k):  # sum_n lam[n] z[n-k], zero history
+        return (lam[..., k:] * z[..., : max(T - k, 0)]).sum(-1)
+
+    db = [corr(u, k) for k in range(3)]
+    da = [-corr(inters, k) for k in (1, 2)]
+    dsos = torch.stack([*db, torch.zeros_like(db[0]), *da], dim=-1)  # (S, R, 6)
+    return dsos.transpose(0, 1), outs[S]
+
+
+class _PlainEngine:
+    """The three uses of the cascade, evaluated by :func:`sosfilt_rows_plain`."""
+
+    @staticmethod
+    def forward(sos, x):
+        return sosfilt_rows_plain(sos, x)
+
+    @staticmethod
+    def save_all(sos, x):
+        return sosfilt_rows_plain(sos, x, save_all=True)
+
+    @staticmethod
+    def adjoint(adj_sos, g):
+        return sosfilt_rows_plain(adj_sos, g.flip(-1), save_all=True).flip(-1)
+
+
+# the kernel's three entry points: (name, writes every section)
+_ENTRY = {
+    "forward": ("sosfilt_cascade_f32", False),
+    "save_all": ("sosfilt_cascade_save_all_f32", True),
+    "adjoint": ("sosfilt_cascade_adjoint_f32", True),
+}
+
+
+def _launch(use: str, sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    name, save_all = _ENTRY[use]
     R, T = x.shape
     S = sos.shape[1]
-    y = torch.empty_like(x)
+    y = torch.empty((S, R, T) if save_all else (R, T), dtype=x.dtype, device=x.device)
     if R == 0 or T == 0:
         return y
     lib = _build.library()
@@ -75,27 +169,65 @@ def _launch(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         )
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sosfilt_cascade_f32(sos.data_ptr(), x.data_ptr(), y.data_ptr(), R, S, T, stream)
-    _build.check(err, "sosfilt_cascade_f32")
-    sosfilt_pallas.launches += 1
+        err = getattr(lib, name)(sos.data_ptr(), x.data_ptr(), y.data_ptr(), R, S, T, stream)
+    _build.check(err, name)
     return y
 
 
+class _CudaEngine:
+    """The three uses of the cascade, each one launch of the CUDA kernel."""
+
+    @staticmethod
+    def forward(sos, x):
+        y = _launch("forward", sos, x)
+        sosfilt_pallas.launches += 1
+        return y
+
+    @staticmethod
+    def save_all(sos, x):
+        y = _launch("save_all", sos, x)
+        sosfilt_pallas.save_all_launches += 1
+        return y
+
+    @staticmethod
+    def adjoint(adj_sos, g):
+        # the kernel walks time backward: the flipped-time cascade with its
+        # input and outputs left in forward time
+        outs = _launch("adjoint", adj_sos, g)
+        sosfilt_pallas.adjoint_launches += 1
+        return outs
+
+
 class _SosfiltKernel(torch.autograd.Function):
-    """Forward runs the CUDA kernel; the backward (the adjoint cascade of
-    dasp_tpu/ops/pallas_iir.py _rows_bwd) is not ported yet."""
+    """The cascade with its adjoint-state gradient, on (R, S, 6) sections
+    and (R, T) rows, evaluated by ``engine`` (CUDA kernel or plain)."""
 
     @staticmethod
-    def forward(ctx, sos, x):
-        return _launch(sos, x)
+    def forward(ctx, sos, x, engine):
+        inters = engine.save_all(sos, x)  # (S, R, T)
+        ctx.save_for_backward(sos, x, inters)
+        ctx.engine = engine
+        return inters[-1]
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_y):
-        raise NotImplementedError(
-            "the biquad-cascade kernel has no backward yet: it comes with the "
-            "training step (ROADMAP.md Queue 2, kernel A adjoint). For "
-            "gradients on the GPU use filter_method='exact' (plain autograd)."
+        sos, x, inters = ctx.saved_tensors
+        dsos, dx = _vjp(sos, x, inters, grad_y.contiguous(), ctx.engine.adjoint)
+        return (
+            dsos if ctx.needs_input_grad[0] else None,
+            dx if ctx.needs_input_grad[1] else None,
+            None,
         )
+
+
+def sosfilt_rows_grad_plain(sos: torch.Tensor, x: torch.Tensor, grad_y: torch.Tensor):
+    """(dsos, dx) of the cascade on (R, T) rows for the cotangent ``grad_y``,
+    by the adjoint formulas with the plain version as the engine, on any
+    device: what the kernel's backward computes, in the TPU kernel's
+    rounding."""
+    inters = _PlainEngine.save_all(sos, x)
+    return _vjp(sos, x, inters, grad_y, _PlainEngine.adjoint)
 
 
 def _rows(sos, x, stabilize):
@@ -111,31 +243,12 @@ def _rows(sos, x, stabilize):
 
 def sosfilt_plain(sos: torch.Tensor, x: torch.Tensor, stabilize: bool = True) -> torch.Tensor:
     """:func:`sosfilt_pallas` evaluated by the plain block-state version on
-    any device."""
+    any device, differentiated by autograd through it."""
     sos_rows, rows = _rows(sos, x, stabilize)
     return sosfilt_rows_plain(sos_rows, rows).reshape(x.shape)
 
 
-def sosfilt_pallas(sos: torch.Tensor, x: torch.Tensor, stabilize: bool = True) -> torch.Tensor:
-    """Exact time-domain biquad cascade (see the module docstring).
-
-    On a CUDA tensor this launches the CUDA kernel (forward only: backward
-    raises ``NotImplementedError``); on a CPU tensor it runs the plain
-    block-state version.
-
-    Args:
-        sos: (bs, n_sections, 6) with a0 normalized to 1.
-        x: signal (bs, ..., T); on CUDA float32 and contiguous.
-        stabilize: clamp denominators into the stability triangle first
-            (a no-op for every cookbook design; see :func:`stabilize_sos`).
-
-    Returns:
-        Filtered signal, same shape as x.
-    """
-    if x.device.type == "cpu":
-        return sosfilt_plain(sos, x, stabilize)
-    if x.device.type != "cuda":
-        raise ValueError(f"sosfilt_pallas runs on CPU or CUDA tensors, not {x.device}")
+def _check_cuda(sos: torch.Tensor, x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or sos.dtype != torch.float32:
         raise TypeError(f"sosfilt kernel takes float32, got x {x.dtype}, sos {sos.dtype}")
     if not x.is_contiguous():
@@ -146,11 +259,48 @@ def sosfilt_pallas(sos: torch.Tensor, x: torch.Tensor, stabilize: bool = True) -
         )
     if sos.device != x.device:
         raise ValueError(f"sos on {sos.device} but x on {x.device}")
+
+
+def sosfilt_pallas(sos: torch.Tensor, x: torch.Tensor, stabilize: bool = True) -> torch.Tensor:
+    """Exact time-domain biquad cascade (see the module docstring).
+
+    On a CUDA tensor this launches the CUDA kernel; on a CPU tensor it runs
+    the plain block-state version. Differentiable with respect to sos and x
+    by the adjoint cascade: when autograd needs a gradient the forward keeps
+    every section's output (the save-all launch) and the backward is one
+    more launch; otherwise it is one forward launch.
+
+    Args:
+        sos: (bs, n_sections, 6) with a0 normalized to 1.
+        x: signal (bs, ..., T); on CUDA float32 and contiguous.
+        stabilize: clamp denominators into the stability triangle first
+            (a no-op for every cookbook design; see :func:`stabilize_sos`).
+            Its straight-through gradient stays outside the kernel's
+            gradient, as in the JAX package.
+
+    Returns:
+        Filtered signal, same shape as x.
+    """
+    if x.device.type == "cpu":
+        engine = _PlainEngine
+    elif x.device.type == "cuda":
+        _check_cuda(sos, x)
+        engine = _CudaEngine
+    else:
+        raise ValueError(f"sosfilt_pallas runs on CPU or CUDA tensors, not {x.device}")
     sos_rows, rows = _rows(sos, x, stabilize)
-    return _SosfiltKernel.apply(sos_rows.contiguous(), rows).reshape(x.shape)
+    sos_rows = sos_rows.contiguous()
+    if torch.is_grad_enabled() and (sos_rows.requires_grad or rows.requires_grad):
+        y = _SosfiltKernel.apply(sos_rows, rows, engine)
+    else:
+        y = engine.forward(sos_rows, rows)
+    return y.reshape(x.shape)
 
 
-sosfilt_pallas.launches = 0  # kernel launches, counted in _launch
+# kernel launches by use, counted in _CudaEngine
+sosfilt_pallas.launches = 0
+sosfilt_pallas.save_all_launches = 0
+sosfilt_pallas.adjoint_launches = 0
 
 
 def lfilter1_pallas(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

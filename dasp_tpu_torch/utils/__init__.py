@@ -1,0 +1,22 @@
+"""Utilities: the MR-STFT loss. PyTorch counterpart of the loss part of
+``dasp_tpu/utils``."""
+
+from .loss import (
+    a_weighting,
+    a_weighting_fir_taps,
+    auto_eq_mrstft,
+    fir_prefilter,
+    multi_resolution_stft_loss,
+    stft_loss,
+    stft_magnitude,
+)
+
+__all__ = [
+    "a_weighting",
+    "a_weighting_fir_taps",
+    "auto_eq_mrstft",
+    "fir_prefilter",
+    "multi_resolution_stft_loss",
+    "stft_loss",
+    "stft_magnitude",
+]

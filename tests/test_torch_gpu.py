@@ -7,8 +7,17 @@ from the repository root on a machine with the card and ``nvcc``.
 
 Tolerances: the biquad-cascade kernel within 2e-3 abs of float64
 ``scipy.signal.sosfilt`` (the bound of tests/test_pallas_iir.py) and at most
-2x its plain version's error; the ballistics kernel bitwise equal to its
-plain loop.
+2x its plain version's error; its gradient (save-all forward and adjoint
+launches) within 1e-2 (dsos) and 1e-3 (dx) of the largest float64 gradient
+(autograd through the plain version in float64), and at most 2x the error
+of the plain fp32 adjoint plus 2e-4 of that largest gradient: on rows of
+32768 samples both fp32 recursions sit near 1e-4 of it and either may be
+the closer (measured on an H100: kernel 6.6e-5, plain 2.5e-5 for dsos),
+while at the path's 131072 samples the plain version's block carries
+dominate (chip_smoke.py phase 5 holds the strict 2x rule there: kernel
+1.2e-4, plain 1.7e-2); the ballistics kernels bitwise equal to their
+plain loops; a smoke-width training step through all kernel uses within
+1e-3 (loss) and 1e-2 (gradient norm) of the plain path.
 """
 
 import numpy as np
@@ -109,13 +118,98 @@ def test_kernel_wrappers_check_inputs(cuda):
         BK.ballistics_pallas((-torch.rand(2, 1, 512, device=cuda))[..., ::2], torch.ones(2), torch.ones(2))
 
 
-def test_kernel_backward_raises(cuda):
-    x = torch.randn(2, 1, 256, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        IK.sosfilt_pallas(eq_sos(2, seed=3).to(cuda), x).sum().backward()
-    g = (-torch.rand(2, 1, 256, device=cuda)).requires_grad_()
-    with pytest.raises(NotImplementedError):
-        BK.ballistics_pallas(g, 0.9 * torch.ones(2), 0.99 * torch.ones(2)).sum().backward()
+def counts():
+    return (IK.sosfilt_pallas.launches, IK.sosfilt_pallas.save_all_launches,
+            IK.sosfilt_pallas.adjoint_launches, BK.ballistics_pallas.launches,
+            BK.ballistics_pallas.bwd_launches)
+
+
+def one_pole_sos(bs):
+    alpha = torch.linspace(0.9, 0.9995, bs)
+    b = torch.stack([1.0 - alpha, torch.zeros(bs)], dim=-1)
+    a = torch.stack([torch.ones(bs), -alpha], dim=-1)
+    return IK.embed_first_order_sos(b, a)[:, None, :]
+
+
+@pytest.mark.parametrize("case", ["eq", "one_pole", "eq_shared_by_2_channels"])
+def test_sosfilt_gradient_matches_float64_and_plain_adjoint(cuda, case):
+    bs, ch, T = 8, 2 if case == "eq_shared_by_2_channels" else 1, 32768
+    sos = one_pole_sos(bs) if case == "one_pole" else eq_sos(bs, seed=4)
+    rng = np.random.default_rng(5)
+    x = torch.tensor((rng.standard_normal((bs, ch, T)) * 0.25).astype(np.float32))
+    w = torch.tensor(rng.standard_normal((bs, ch, T)).astype(np.float32))
+
+    def grads(fn, dev, dtype):
+        s_ = sos.detach().to(dev, dtype).requires_grad_()
+        x_ = x.detach().to(dev, dtype).requires_grad_()
+        (fn(s_, x_) * w.to(dev, dtype)).sum().backward()
+        return s_.grad.double().cpu(), x_.grad.double().cpu()
+
+    before = counts()
+    got = grads(IK.sosfilt_pallas, cuda, torch.float32)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 1, 1, 0, 0)
+    truth = grads(IK.sosfilt_plain, cuda, torch.float64)
+    sos_rows = IK.stabilize_sos(sos).repeat_interleave(ch, dim=0).to(cuda)
+    dsos_p, dx_p = IK.sosfilt_rows_grad_plain(sos_rows, x.to(cuda).reshape(bs * ch, T),
+                                              w.to(cuda).reshape(bs * ch, T))
+    plain = (dsos_p.reshape(bs, ch, -1, 6).sum(1).double().cpu(), dx_p.reshape(x.shape).double().cpu())
+    for k, p, t, bound in zip(got, plain, truth, (1e-2, 1e-3)):
+        err_k, err_p = float((k - t).abs().max()), float((p - t).abs().max())
+        assert err_k <= bound * float(t.abs().max())
+        assert err_k <= 2 * err_p + 2e-4 * float(t.abs().max())
+
+
+@pytest.mark.parametrize("with_y0", [False, True])
+def test_ballistics_backward_bitwise_plain(cuda, with_y0):
+    g = make_g(8, 5000)
+    aa, ar = torch.linspace(0.5, 0.95, 8), torch.linspace(0.9, 0.999, 8)
+    y0 = -torch.rand(8, 1) if with_y0 else torch.zeros(8, 1)
+    ct = torch.randn(8, 1, 5000)
+    leaves = [t.detach().to(cuda).requires_grad_() for t in (g, aa, ar, y0)]
+    before = counts()
+    (BK.ballistics_pallas(*leaves[:3], y0=leaves[3]) * ct.to(cuda)).sum().backward()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, 1, 1)
+    y = BK.ballistics_rows_plain(g.reshape(8, 5000), aa, ar, y0.reshape(8))
+    ref = BK.ballistics_bwd_rows_plain(y, g.reshape(8, 5000), aa, ar, y0.reshape(8), ct.reshape(8, 5000))
+    for leaf, r in zip(leaves, ref):
+        assert torch.equal(leaf.grad.cpu(), r.reshape(leaf.shape))
+
+
+def test_training_step_through_all_kernel_uses(cuda):
+    """A smoke-width training step on the card: each kernel use launches as
+    the step needs it, the loss is finite and the parameters move; the same
+    step's gradients on the plain path (EQ "exact", compressor "exact")
+    agree within 1e-3 (loss) and 1e-2 (gradient norm)."""
+    from dasp_tpu_torch import train as TR
+
+    torch.manual_seed(0)
+    net, procs, opt = TR.make_style_training(SR, smoke=True, device=cuda)
+    _, plain, _ = TR.make_style_training(SR, smoke=True, device=cuda, eq_filter_method="exact",
+                                         compressor_smoother="exact")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = 0.25 * torch.randn((2, 1, 16384), generator=gen, device=cuda)
+    rand = TR.random_corruption(gen, 2, procs, device=cuda)
+    start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    before = counts()
+    loss = TR.train_step(net, procs, opt, x, rand, generator=gen)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 2, 1)
+    assert bool(torch.isfinite(loss))
+    assert all(not torch.equal(start[k], p) for k, p in net.named_parameters())
+
+    batch = TR.corrupt(procs, x, rand, generator=gen)
+    state = gen.get_state()
+    results = []
+    for processors in (procs, plain):
+        net.load_state_dict(start)
+        net.zero_grad(set_to_none=True)
+        gen.set_state(state)
+        loss = TR.render_loss(net, processors, *batch, generator=gen)
+        loss.backward()
+        norm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in net.parameters()))
+        results.append((float(loss.detach()), float(norm)))
+    (loss_k, norm_k), (loss_p, norm_p) = results
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    assert abs(norm_k - norm_p) <= 1e-2 * norm_p
 
 
 def test_render_runs_through_both_kernels(cuda):

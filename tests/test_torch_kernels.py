@@ -1,8 +1,10 @@
 """The two kernel modules of dasp_tpu_torch against dasp_tpu and float64.
 
 On the CPU the wrappers ``sosfilt_pallas`` / ``lfilter1_pallas`` /
-``ballistics_pallas`` run their plain PyTorch versions; the JAX side runs the
-Pallas kernels in interpret mode. Tolerances:
+``ballistics_pallas`` run their plain PyTorch versions (and, for gradients,
+the kernels' backward formulas through the plain engines; see
+tests/test_torch_backward.py); the JAX side runs the Pallas kernels in
+interpret mode. Tolerances:
 
 * biquad cascade: 2e-3 abs against ``sosfilt_pallas(interpret=True)``,
   ``sosfilt_exact`` and float64 ``scipy.signal.sosfilt``, the bound of
@@ -111,12 +113,13 @@ def test_lfilter1_matches_jax():
 
 
 def test_sosfilt_gradients_match_jax():
-    """Autograd through the plain version and the JAX kernel's custom VJP
-    (its adjoint cascade), each against float64 autograd of the same
-    function. The gradient with respect to raw denominator coefficients is
-    ill-conditioned in fp32 (both sit ~3e-3 from float64 here), so the bound
-    is tests/test_pallas_iir.py's 1e-2 relative to the largest sos gradient,
-    and 1e-3 for the signal gradient."""
+    """The port's backward (the adjoint cascade through the plain engine, on
+    the CPU) and the JAX kernel's custom VJP, each against float64 autograd
+    through the plain forward (``sosfilt_plain``). The gradient with respect
+    to raw denominator coefficients is ill-conditioned in fp32 (both sit
+    ~3e-3 from float64 here), so the bound is tests/test_pallas_iir.py's 1e-2
+    relative to the largest sos gradient, and 1e-3 for the signal
+    gradient."""
     rng = np.random.default_rng(13)
     x = (rng.standard_normal((2, 1, 512)) * 0.3).astype(np.float32)
     sos = make_sos(2).numpy()
@@ -126,14 +129,14 @@ def test_sosfilt_gradients_match_jax():
 
     grads_j = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(sos), jnp.asarray(x))
 
-    def torch_grads(dtype):
+    def torch_grads(fn, dtype):
         st = torch.tensor(sos, dtype=dtype, requires_grad=True)
         xt = torch.tensor(x, dtype=dtype, requires_grad=True)
-        (IK.sosfilt_pallas(st, xt) ** 2).mean().backward()
+        (fn(st, xt) ** 2).mean().backward()
         return st.grad.double().numpy(), xt.grad.double().numpy()
 
-    grads_t = torch_grads(torch.float32)
-    truth = torch_grads(torch.float64)
+    grads_t = torch_grads(IK.sosfilt_pallas, torch.float32)
+    truth = torch_grads(IK.sosfilt_plain, torch.float64)
     for gt, gj, g64, tol in zip(grads_t, grads_j, truth, (1e-2, 1e-3)):
         scale = np.abs(g64).max()
         np.testing.assert_allclose(gt / scale, g64 / scale, atol=tol)

@@ -2,9 +2,16 @@
 
 The flax StyleTransferNet's variables (with random BatchNorm statistics
 and PReLU slopes, so a swapped or dropped leaf shows) are converted and
-loaded into the torch net; both run in eval mode on the same numpy inputs.
-The forward pass agrees to 1e-5 abs (fp32 convolutions summed in another
-order).
+loaded into the torch net; both run on the same numpy inputs. The forward
+pass agrees to 1e-5 abs in eval and train mode (fp32 convolutions summed in
+another order). In train mode the new BatchNorm statistics agree with
+flax's ``mutable=["batch_stats"]`` update to 1e-6 abs (momentum 0.99 toward
+the biased batch variance, each of the encoder's two calls in turn). With
+bf16 convolutions the port keeps bf16 activations as flax does and agrees
+with flax's bf16 net to 3e-6 abs in eval and train mode; the test also
+measures the fp32-activation variant (bf16 convolutions cast back to fp32,
+the port's earlier behaviour), which sits 8e-6 (train) and 8e-5 (eval)
+away.
 """
 
 import jax
@@ -12,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as nnf
 
 from dasp_tpu.models import StyleTransferNet as FlaxNet
 from dasp_tpu_torch.models import StyleTransferNet, style_net_from_flax
@@ -19,6 +27,8 @@ from dasp_tpu_torch.models.tcn import TCNBlock
 
 SMALL = dict(embed_dim=32, ch_dim=8, encoder_dilations=(1, 2, 4))
 TOL = 1e-5
+STATS_TOL = 1e-6
+BF16_TOL = 3e-6
 FULL_WIDTH_PARAMS = 10_322_246  # counted from the flax net.init
 
 
@@ -144,3 +154,75 @@ def test_bf16_encoder_runs_and_stays_close():
         # bf16 keeps ~3 significant digits through 6 convolutions
         np.testing.assert_allclose(out16[k].numpy(), out32[k].numpy(), atol=5e-2)
     assert all(p.dtype == torch.float32 for p in bnet.parameters())
+
+
+def clips(seed=1, T=4096):
+    rng = np.random.default_rng(seed)
+    return tuple((rng.standard_normal((2, 1, T)) * 0.3).astype(np.float32) for _ in range(2))
+
+
+def test_train_mode_batch_stats_match_flax():
+    """One train-mode forward updates the running statistics as flax does:
+    running = 0.99 running + 0.01 batch, with the biased batch variance,
+    once per encoder call (the shared encoder runs twice)."""
+    fnet, variables, tnet = small_pair()
+    inp, ref = clips()
+    out_j, updates = fnet.apply(variables, jnp.asarray(inp), jnp.asarray(ref), train=True,
+                                mutable=["batch_stats"])
+    tnet.train()
+    with torch.no_grad():
+        out_t = tnet(torch.tensor(inp), torch.tensor(ref))
+    for k in out_j:
+        np.testing.assert_allclose(out_t[k].numpy(), np.asarray(out_j[k]), atol=TOL, err_msg=k)
+    new = style_net_from_flax({"params": variables["params"], "batch_stats": updates["batch_stats"]})
+    state = tnet.state_dict()
+    for k, v in new.items():
+        if "running" in k:
+            np.testing.assert_allclose(state[k].numpy(), v.numpy(), atol=STATS_TOL, err_msg=k)
+    assert all(int(state[k]) == 2 for k in state if k.endswith("num_batches_tracked"))
+
+
+def _fp32_activation_layer(self, conv, prelu, bn, x):
+    """The earlier bf16 variant: convolution outputs cast back to fp32, so
+    PReLU and BatchNorm run on fp32 activations."""
+    h = nnf.conv1d(x.to(self.dtype), conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                   stride=conv.stride, dilation=conv.dilation)
+    return bn(prelu(h.float()))
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_activations_match_flax(train, monkeypatch):
+    _, variables, _ = small_pair()
+    inp, ref = clips()
+    fnet = FlaxNet(**SMALL, dtype=jnp.bfloat16)
+    if train:
+        out_j, _ = fnet.apply(variables, jnp.asarray(inp), jnp.asarray(ref), train=True,
+                              mutable=["batch_stats"])
+    else:
+        out_j = fnet.apply(variables, jnp.asarray(inp), jnp.asarray(ref), train=False)
+
+    def max_err():
+        bnet = StyleTransferNet(**SMALL, dtype=torch.bfloat16)
+        bnet.load_state_dict(style_net_from_flax(variables, bnet), strict=True)
+        bnet.train(train)
+        with torch.no_grad():
+            out_t = bnet(torch.tensor(inp), torch.tensor(ref))
+        assert all(v.dtype == torch.float32 for v in out_t.values())
+        return max(float(np.abs(out_t[k].numpy() - np.asarray(out_j[k], np.float32)).max()) for k in out_j)
+
+    err = max_err()
+    print(f"bf16 {'train' if train else 'eval'}: port vs flax {err:.3e}")
+    assert err <= BF16_TOL
+    monkeypatch.setattr(TCNBlock, "_layer", _fp32_activation_layer)
+    err_fp32_act = max_err()
+    print(f"fp32-activation variant vs flax {err_fp32_act:.3e}")
+    assert err_fp32_act > BF16_TOL
+
+
+def test_bf16_block_keeps_bf16_activations():
+    blk = TCNBlock(1, 4, kernel_size=7, dilation=2, dtype=torch.bfloat16)
+    for mode in (True, False):
+        blk.train(mode)
+        y = blk(torch.randn(2, 1, 200))
+        assert y.dtype == torch.bfloat16
+        assert blk.bn1.running_var.dtype == torch.float32
