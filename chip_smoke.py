@@ -2,7 +2,8 @@
 """Smoke run of dasp_tpu_torch on one CUDA GPU.
 
 Builds the hand-written CUDA kernels from ``dasp_tpu_torch/csrc`` and drives
-the port's style-transfer render and training step at full width:
+the port's style-transfer render and training step and its blind estimation
+of the pitch shifter and chorus at full width:
 
   phase 0  the card: name and power limit (nvidia-smi); fails without CUDA
   phase 1  build (nvcc, sm_90a) and load the kernels; build time
@@ -29,6 +30,25 @@ the port's style-transfer render and training step at full width:
            counts, finite loss and gradients, parameters changed; one step's
            gradients again on the plain path (EQ "exact", compressor
            "exact") from the same weights, batch and noise
+  phase 8  fractional-delay kernel (C-fwd) at 8 x 131072: the blind path's
+           mono pitch shifter, and at 8 x 2 x 131072 the pitch shifter
+           (two wrapping taps, 60 ms window, B 256) and an LFO modulated
+           delay (22 ms bound, B 512): against a float64 two-point
+           reference, bitwise against its plain engine, against the dense
+           plain version; ms of each, and of the whole effects' forward and
+           gradient on the kernel and on the dense path
+  phase 9  its backward (C-bwd) at the same shapes: dx, dd, dg against
+           float64, the plain engine and the dense version's autograd; dd
+           and dg bitwise from run to run; the reference kernel's fault case
+           (a ramp with dr/dt = 20, wraps=False) against float64
+  phase 10 the blind-estimation slice: the 198,354-parameter
+           ParameterNetwork preset with PitchShift at bs 8 on 131072-sample
+           mono clips: 1 warm-up and 3 timed steps (target render, forward
+           + loss, backward, Adam, by CUDA events), exact launch counts,
+           finite loss and gradients, parameters changed; one Chorus step;
+           the effect's gradient with respect to a fixed p_hat three ways
+           (kernel fp32, dense plain fp32, dense float64) held to bounds,
+           and the net's gradients the same three ways, printed
 
 Prints one JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -74,6 +94,37 @@ CHAIN_SUM_TOL = 1e-5
 # the plain-path step against the kernel path (relative)
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_NORM_TOL = 1e-2
+# kernel C against float64: at most 2 x the dense plain version's error plus
+# these floors (forward: absolute; backward: of the largest float64 value;
+# dd also off the fp32 kinks, where every fp32 version takes dd = 0).
+# Measured on an H100 at 8 x 2 x 131072: forward 1.300e-4 (kernel, plain
+# engine and dense alike); backward of each largest value dx 1.036e-4, dd
+# 3.627e-1 at the fp32 kinks (8.3e-8 off them), dg 1.477e-4, the dense
+# version within a factor 1.4 of the kernel either way
+C_FWD_FLOOR = 1e-6
+C_BWD_FLOOR = 1e-6
+# C-bwd against its plain engine: dd and dg bitwise; dx summed by atomics
+# in another order, within this fraction of dx's largest float64 value
+C_BWD_DX_ENGINE_TOL = 1e-6
+# the reference kernel's fault case: relative to the float64 peak
+RAMP_TOL = 1e-5
+BLIND_PARAMS = {"PitchShift": 198_354, "Chorus": 198_612}
+BLIND_STATS = 1_472
+# launches per blind-estimation step: C-fwd in the target render and the
+# re-render, C-bwd once; no A, no B
+BLIND_STEP_LAUNCHES = {"frac_delay": 2, "frac_delay_bwd": 1}
+# the effect's gradient d(stft_loss)/d(p_hat) at a fixed p_hat, for each
+# parameter, relative to its float64 norm: the kernel's distance from float64
+# at most 2 x the dense plain path's plus this floor, and its distance from
+# the dense fp32 path at most EFFECT_GRAD_FP32_TOL. Measured on an H100 at
+# full width in two runs: from float64 semitones 0.575-0.887 (kernel and
+# dense alike: a sum of ~1e6 cancelling terms, each moved by the fp32 render
+# error, so the float64 rule cannot tell a wrong kernel there) and mix
+# 8.7e-3-7.05e-2; kernel vs dense fp32 at most 7.5e-4 and 1.2e-4, against
+# 8.3e-2 and 1.2e-1 for C-bwd kernels with dd zeroed or scaled by 0.8. The net's gradient is printed only: both fp32
+# paths sit one to four norms from float64 there.
+EFFECT_GRAD_FLOOR = 1e-2
+EFFECT_GRAD_FP32_TOL = 1e-2
 
 
 class PhaseError(RuntimeError):
@@ -95,6 +146,7 @@ def card_line() -> str:
 
 def launch_counts() -> dict:
     from dasp_tpu_torch.ops.ballistics_kernel import ballistics_pallas
+    from dasp_tpu_torch.ops.frac_delay_kernel import frac_delay_pallas
     from dasp_tpu_torch.ops.iir_kernel import sosfilt_pallas
 
     return {
@@ -103,15 +155,19 @@ def launch_counts() -> dict:
         "sosfilt_cascade_adjoint": sosfilt_pallas.adjoint_launches,
         "ballistics": ballistics_pallas.launches,
         "ballistics_bwd": ballistics_pallas.bwd_launches,
+        "frac_delay": frac_delay_pallas.launches,
+        "frac_delay_bwd": frac_delay_pallas.bwd_launches,
     }
 
 
 def reset_launch_counts() -> None:
     from dasp_tpu_torch.ops.ballistics_kernel import ballistics_pallas
+    from dasp_tpu_torch.ops.frac_delay_kernel import frac_delay_pallas
     from dasp_tpu_torch.ops.iir_kernel import sosfilt_pallas
 
     sosfilt_pallas.launches = sosfilt_pallas.save_all_launches = sosfilt_pallas.adjoint_launches = 0
     ballistics_pallas.launches = ballistics_pallas.bwd_launches = 0
+    frac_delay_pallas.launches = frac_delay_pallas.bwd_launches = 0
 
 
 def host_ms(fn) -> float:
@@ -529,7 +585,7 @@ def phase_training(seed, device, card):
         require(finite, f"step {i}: non-finite gradients")
         steps.append(total)
     launches = launch_counts()
-    want = {k: TRAIN_STEPS * n for k, n in STEP_LAUNCHES.items()}
+    want = {k: TRAIN_STEPS * STEP_LAUNCHES.get(k, 0) for k in launches}
     print(f"[train] launches during the {TRAIN_STEPS} steps: {launches}")
     require(launches == want, f"training launches {launches}, expected {want}")
     changed = sum(not torch.equal(start[k], v) for k, v in net.state_dict().items() if v.is_floating_point())
@@ -576,6 +632,381 @@ def phase_training(seed, device, card):
     return launches
 
 
+def frac_delay_configs(rng, device):
+    """The kernel's operands at the phases' shapes: (name, x_ext, d_stk,
+    g_stk, B, Dm), built as pitch_shift and modulated_delay build them."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch import functional as F
+
+    x2 = torch.tensor((rng.standard_normal((BS, 2, T)) * 0.25).astype(np.float32), device=device)
+    W = F.pitch_shift_window_samples(60.0, SR)
+    semitones = torch.linspace(-7.0, 7.0, BS, device=device).reshape(BS, 1, 1)
+    taps = F._pitch_shift_taps(semitones, T, W)
+    Dm = math.ceil(W) + 1
+    configs = [
+        (name, *F._frac_delay_operands(x, taps, Dm, 256), 256, Dm)
+        for name, x in (("pitch shift 8x1 (blind path)", x2[:, :1].contiguous()), ("pitch shift 8x2", x2))
+    ]
+    rate, depth, base = (torch.full((BS, 1, 1), v, device=device) for v in (0.8, 12.0, 8.0))
+    d = F._modulated_delay_samples(rate, depth, base, T, SR)
+    dmax = 22.0 * SR / 1e3
+    Dm = math.ceil(dmax) + 1
+    configs.append(("modulated delay 8x2", *F._frac_delay_operands(x2, [(torch.clamp(d, max=dmax), None)], Dm, 512),
+                    512, Dm))
+    return configs
+
+
+def two_point_ref64(x_ext, d_stk, g_stk, B, Dm, ct=None):
+    """Linear interpolation in float64 with tile-local coordinates: output
+    sample t of tile k reads x_ext[k*B + i0] and x_ext[k*B + i0 + 1] with
+    r = (t - k*B + Dm) - d, i0 = floor(r), f = r - i0; lattice points
+    outside the window [0, Dm + B) read zero; gain g once t - d >= 0. With
+    a cotangent ``ct`` also returns (dx, dd, dg), dd = 0 where r is an
+    integer (the kernels' convention at the interpolation kink)."""
+    import torch
+
+    x, d, g = (a.double() for a in (x_ext, d_stk, g_stk))
+    bs, chs, _ = x.shape
+    nt, _, Tp = d.shape
+    W = Dm + B
+    t = torch.arange(Tp, device=x.device, dtype=torch.float64)
+    j = torch.remainder(t, B)
+    start = t - j
+    wet = x.new_zeros((bs, chs, Tp))
+    grads = None if ct is None else (torch.zeros_like(x), [], [])
+    for i in range(nt):
+        r = (j + Dm) - d[i]
+        i0 = torch.floor(r)
+        f = r - i0
+        mask = (t - d[i] >= 0).double()
+        gv = mask * g[i]
+        pts = []
+        for k, w in ((i0, 1.0 - f), (i0 + 1.0, f)):
+            ok = (k >= 0) & (k < W)
+            pos = (start + torch.where(ok, k, torch.zeros_like(k))).long()[:, None, :].expand(bs, chs, Tp)
+            pts.append((torch.gather(x, 2, pos) * ok[:, None, :], w * ok, pos))
+        (x0, w0, p0), (x1, w1, p1) = pts
+        interp = w0[:, None, :] * x0 + w1[:, None, :] * x1
+        wet += gv[:, None, :] * interp
+        if ct is not None:
+            c = ct.double()
+            grads[1].append(torch.where(f == 0, 0.0, -(c * gv[:, None, :] * (x1 - x0)).sum(1)))
+            grads[2].append((c * mask[:, None, :] * interp).sum(1))
+            for pos, w in ((p0, w0), (p1, w1)):
+                grads[0].scatter_add_(2, pos, c * (gv * w)[:, None, :])
+    if ct is None:
+        return wet
+    return wet, (grads[0], torch.stack(grads[1]), torch.stack(grads[2]))
+
+
+def phase_frac_delay_fwd(configs, device, card):
+    """Kernel C-fwd against float64, its plain engine and the dense plain
+    version; then the whole effects on the kernel and on the dense path."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch.ops import frac_delay_kernel as FK
+
+    results = {}
+    with torch.no_grad():
+        for name, x_ext, d, g, B, Dm in configs:
+            wet_k = FK.frac_delay_pallas(x_ext, d, g, B, Dm)
+            wet_e = FK.frac_delay_plain(x_ext, d, g, B, Dm)
+            wet_d = F._frac_delay_tiles_ad(B, Dm, x_ext, d, g)
+            ref = two_point_ref64(x_ext, d, g, B, Dm)
+            torch.cuda.synchronize()
+            err = {k: float((v.double() - ref).abs().max()) for k, v in
+                   (("kernel", wet_k), ("engine", wet_e), ("dense", wet_d))}
+            bitwise = torch.equal(wet_k, wet_e)
+            ms = cuda_ms(lambda: FK.frac_delay_pallas(x_ext, d, g, B, Dm), 50)
+            ms_e = cuda_ms(lambda: FK.frac_delay_plain(x_ext, d, g, B, Dm), 10)
+            ms_d = cuda_ms(lambda: F._frac_delay_tiles_ad(B, Dm, x_ext, d, g), 2)
+            print(f"[C-fwd {name}] taps {d.shape[0]}, B {B}, Dm {Dm} | vs float64: kernel {err['kernel']:.3e}, "
+                  f"plain engine {err['engine']:.3e}, dense {err['dense']:.3e} (peak {float(ref.abs().max()):.3f}) | "
+                  f"kernel == plain engine bitwise: {bitwise} | kernel {ms:.4f} ms, plain engine {ms_e:.4f} ms, "
+                  f"dense {ms_d:.3f} ms | {card}")
+            require(bitwise, f"C-fwd {name}: kernel differs from its plain engine")
+            require(bool(torch.isfinite(wet_k).all()), f"C-fwd {name}: non-finite output")
+            require(err["kernel"] <= 2 * err["dense"] + C_FWD_FLOOR,
+                    f"C-fwd {name}: error {err['kernel']:.3e} > 2 x dense {err['dense']:.3e} + {C_FWD_FLOOR}")
+            results[name] = {"err": err["kernel"], "ms": ms, "plain_ms": ms_e, "dense_ms": ms_d}
+
+    # the whole effects at fdt_ab scale: forward, and the gradient of
+    # mean(y ** 2) with respect to the audio and every parameter
+    rng = np.random.default_rng(1)
+    x = torch.tensor((rng.standard_normal((BS, 2, T)) * 0.25).astype(np.float32), device=device)
+    full = lambda v: torch.full((BS,), v, device=device)  # noqa: E731
+    effects = {
+        "pitch_shift": (lambda x_, st, mix, adj: F.pitch_shift(x_, SR, st, mix, adjoint=adj),
+                        [torch.linspace(-7.0, 7.0, BS, device=device), full(0.7)]),
+        "modulated_delay": (lambda x_, r, dp, b, m, adj: F.modulated_delay(
+            x_, SR, r, dp, b, m, max_delay_ms=22.0, block=512, adjoint=adj),
+            [full(0.8), full(12.0), full(8.0), full(0.7)]),
+    }
+    for name, (fn, params) in effects.items():
+        def grad_call(adj):
+            leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+            torch.mean(fn(*leaves, adj) ** 2).backward()
+
+        times = {}
+        for adj, reps in (("pallas", 20), ("ad", 2)):
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: fn(x, *params, adj), reps)
+            times[adj] = (fwd, cuda_ms(lambda: grad_call(adj), reps))
+        print(f"[C effect {name} 8x2x{T}] forward: kernel path {times['pallas'][0]:.3f} ms, dense path "
+              f"{times['ad'][0]:.3f} ms | gradient: kernel path {times['pallas'][1]:.3f} ms, dense path "
+              f"{times['ad'][1]:.3f} ms | {card}")
+    return results
+
+
+def phase_frac_delay_bwd(configs, device, card):
+    """Kernel C-bwd against float64, its plain engine and autograd through
+    the dense plain version; dd and dg run to run; the steep ramp."""
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch.ops import frac_delay_kernel as FK
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    results = {}
+    for name, x_ext, d, g, B, Dm in configs:
+        ct = torch.randn((x_ext.shape[0], x_ext.shape[1], d.shape[-1]), generator=gen, device=device)
+
+        def autograd(fn):
+            leaves = [a.clone().requires_grad_() for a in (x_ext, d, g)]
+            (fn(*leaves) * ct).sum().backward()
+            return [a.grad for a in leaves]
+
+        got = autograd(lambda *a: FK.frac_delay_pallas(*a, B, Dm))
+        again = autograd(lambda *a: FK.frac_delay_pallas(*a, B, Dm))
+        engine = FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm)
+        dense = autograd(lambda *a: F._frac_delay_tiles_ad(B, Dm, *a))
+        _, truth = two_point_ref64(x_ext, d, g, B, Dm, ct)
+        torch.cuda.synchronize()
+        # read positions that fp32 rounds onto an integer: there every fp32
+        # version takes dd = 0 (the kink) where float64 may not
+        t = torch.arange(d.shape[-1], device=device)
+        r32 = (torch.remainder(t, B).float() + Dm) - d
+        kinks = int((r32 == torch.floor(r32)).sum())
+        off_kink = r32 != torch.floor(r32)
+        line = []
+        for i, gname in enumerate(("dx", "dd", "dg")):
+            scale = float(truth[i].abs().max())
+            # dd off the kinks too: there every fp32 version takes 0, which
+            # sets the all-sample error of each and would hide a wrong dd
+            diffs = {k: v[i].double() - truth[i] for k, v in (("kernel", got), ("engine", engine), ("dense", dense))}
+            e = {k: float(v.abs().max()) / scale for k, v in diffs.items()}
+            e_off = {k: float(torch.where(off_kink, v, 0.0).abs().max()) / scale if gname == "dd" else e[k]
+                     for k, v in diffs.items()}
+            res = float((got[i] - engine[i]).abs().max())
+            run = (torch.equal(got[i], again[i]) if i else float((got[i] - again[i]).abs().max()) / scale)
+            line.append(f"{gname}: kernel {e['kernel']:.3e} (off the kinks {e_off['kernel']:.3e}), plain engine "
+                        f"{e['engine']:.3e}, dense {e['dense']:.3e} (off the kinks {e_off['dense']:.3e}); kernel vs "
+                        f"plain engine {res:.3e} abs; run to run " + (f"bitwise {run}" if i else f"{run:.3e}"))
+            require(bool(torch.isfinite(got[i]).all()), f"C-bwd {name}: non-finite {gname}")
+            for what, err in (("", e), (" off the kinks", e_off)):
+                require(err["kernel"] <= 2 * err["dense"] + C_BWD_FLOOR,
+                        f"C-bwd {name}: {gname} error{what} {err['kernel']:.3e} > 2 x dense {err['dense']:.3e} "
+                        f"+ {C_BWD_FLOOR}")
+            if i:
+                require(run, f"C-bwd {name}: {gname} differs from run to run")
+                require(res == 0, f"C-bwd {name}: {gname} differs from the plain engine by {res:.3e}")
+            else:
+                require(res <= C_BWD_DX_ENGINE_TOL * scale,
+                        f"C-bwd {name}: dx differs from the plain engine by {res / scale:.3e} of its largest "
+                        f"value > {C_BWD_DX_ENGINE_TOL}")
+        # the blind path asks for no dx: its row reports that launch, both
+        # its time and its largest difference from the plain engine's dd, dg
+        _, dd_k, dg_k = FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm, need_dx=False)
+        _, dd_e, dg_e = FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm, need_dx=False)
+        res_nodx = max(float((a - b).abs().max()) for a, b in ((dd_k, dd_e), (dg_k, dg_e)))
+        require(res_nodx == 0, f"C-bwd {name}: without dx, dd/dg differ from the plain engine by {res_nodx:.3e}")
+        ms = cuda_ms(lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm), 50)
+        ms_nodx = cuda_ms(lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm, need_dx=False), 50)
+        ms_e = cuda_ms(lambda: FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm), 10)
+        ms_e_nodx = cuda_ms(lambda: FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm, need_dx=False), 10)
+        ms_d = cuda_ms(lambda: autograd(lambda *a: F._frac_delay_tiles_ad(B, Dm, *a)), 2)
+        print(f"[C-bwd {name}] vs float64, of each largest value ({kinks} kinks): " + " | ".join(line))
+        print(f"[C-bwd {name}] without dx: dd, dg vs plain engine {res_nodx:.3e} abs | kernel {ms:.4f} ms with dx, "
+              f"{ms_nodx:.4f} ms without | plain engine {ms_e:.4f} ms with dx, {ms_e_nodx:.4f} ms without | "
+              f"dense forward + autograd {ms_d:.3f} ms | {card}")
+        results[name] = {"err": res_nodx, "ms": ms_nodx, "plain_ms": ms_e_nodx}
+
+    # the reference kernel's fault: a ramp with dr/dt = 20, smooth within
+    # each tile, on a quarter-sample grid (exact fp32 read positions)
+    B, Dm = 128, 2560
+    x = torch.randn((BS, 2, T), generator=gen, device=device) * 0.25
+    j = torch.remainder(torch.arange(T, device=device), B).float()
+    d = (Dm - 100.25 - 19.0 * j).expand(BS, 1, T)
+    x_ext, d_stk, g_stk = F._frac_delay_operands(x, [(d, None)], Dm, B)
+    wet = FK.frac_delay_pallas(x_ext, d_stk, g_stk, B, Dm, wraps=False)
+    ref = two_point_ref64(x_ext, d_stk, g_stk, B, Dm)
+    err = float((wet.double() - ref).abs().max() / ref.abs().max())
+    print(f"[C ramp dr/dt = 20, wraps=False] kernel vs float64 {err:.3e} of the peak (bound {RAMP_TOL})")
+    require(err <= RAMP_TOL, f"ramp: error {err:.3e} of the peak > {RAMP_TOL}")
+    return results
+
+
+def phase_blind(seed, device, card):
+    """Blind estimation of the pitch shifter (and one chorus step) at full
+    width through kernel C."""
+    import copy
+
+    import torch
+
+    from dasp_tpu_torch import train as TR
+    from dasp_tpu_torch.modules import Chorus, PitchShift
+    from dasp_tpu_torch.utils.loss import stft_loss
+
+    def counted(net):
+        return (sum(p.numel() for p in net.parameters()),
+                sum(b.numel() for n, b in net.named_buffers() if "running" in n))
+
+    proc = PitchShift(SR)
+    torch.manual_seed(seed)
+    net, opt = TR.make_blind_estimation(proc, device=device)
+    print(f"[blind] ParameterNetwork.blind_estimation(2): {counted(net)[0]} parameters, {counted(net)[1]} "
+          f"BatchNorm statistics, train mode; PitchShift(60 ms); bs {BS} x 1 x {T}; Adam lr 1e-4")
+    require(counted(net) == (BLIND_PARAMS["PitchShift"], BLIND_STATS), f"counts {counted(net)}")
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+
+    def batch(p):
+        return (0.25 * torch.randn((BS, 1, T), generator=gen, device=device),
+                torch.rand((BS, p.num_params), generator=gen, device=device))
+
+    batches = [batch(proc) for _ in range(TRAIN_STEPS + 2)]
+    loss, _ = TR.blind_estimation_step(net, proc, opt, *batches[0])  # warm-up
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(loss)), f"warm-up loss {float(loss)}")
+    start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+    names = ("target", "forward", "backward", "optimizer")
+    reset_launch_counts()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+
+        def mark(_name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        t0 = time.perf_counter()
+        loss, param_l1 = TR.blind_estimation_step(net, proc, opt, *batches[1 + i], mark=mark)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        total = marks[0].elapsed_time(marks[-1])
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in net.parameters())
+        print(f"[blind] step {i}: loss {float(loss):.6f}, param_l1 {float(param_l1):.4f} | "
+              + ", ".join(f"{n} {m:.3f} ms" for n, m in zip(names, ms))
+              + f", step {total:.3f} ms (host {wall:.3f} ms) | {card}")
+        require(bool(torch.isfinite(loss)), f"step {i}: loss {float(loss)}")
+        require(finite, f"step {i}: non-finite gradients")
+        steps.append(total)
+    launches = launch_counts()
+    want = {k: TRAIN_STEPS * BLIND_STEP_LAUNCHES.get(k, 0) for k in launches}
+    print(f"[blind] launches during the {TRAIN_STEPS} steps: {launches}")
+    require(launches == want, f"blind-estimation launches {launches}, expected {want}")
+    require(all(not torch.equal(start[k], p) for k, p in net.named_parameters()), "parameters did not change")
+    mean_ms = sum(steps) / TRAIN_STEPS
+    print(f"[blind] {1e3 / mean_ms:.4f} steps/s (CUDA events, mean of {TRAIN_STEPS} steps {mean_ms:.3f} ms) | {card}")
+
+    # one Chorus step
+    chorus = Chorus(SR)
+    cnet, copt = TR.make_blind_estimation(chorus, device=device)
+    require(counted(cnet) == (BLIND_PARAMS["Chorus"], BLIND_STATS), f"Chorus counts {counted(cnet)}")
+    cstart = {k: p.detach().clone() for k, p in cnet.named_parameters()}
+    x_c, rp_c = batch(chorus)
+    reset_launch_counts()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    loss_c, _ = TR.blind_estimation_step(cnet, chorus, copt, x_c, rp_c)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[1].record()
+    torch.cuda.synchronize()
+    used = {k: v for k, v in launch_counts().items() if v}
+    print(f"[blind] Chorus(45 ms bound) step: loss {float(loss_c):.6f}, {counted(cnet)[0]} parameters, launches "
+          f"{used}, {marks[0].elapsed_time(marks[1]):.3f} ms (first step, CUDA events) | {card}")
+    require(used == BLIND_STEP_LAUNCHES, f"Chorus step launches {used}")
+    require(bool(torch.isfinite(loss_c)), f"Chorus loss {float(loss_c)}")
+    require(all(bool(torch.isfinite(p.grad).all()) for p in cnet.parameters()), "Chorus: non-finite gradients")
+    require(all(not torch.equal(cstart[k], p) for k, p in cnet.named_parameters()), "Chorus parameters did not move")
+
+    # one step's gradients three ways, same weights and batch: kernel fp32,
+    # dense plain fp32 and dense float64 (net and effect). First the
+    # effect's own gradient at a fixed p_hat, which is held to bounds; then
+    # the net's, which is printed only (see EFFECT_GRAD_FLOOR)
+    x, rp = batches[-1]
+    state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    with torch.no_grad():
+        p_hat = copy.deepcopy(net)(proc.process_normalized(x, rp, clip_params=True))
+
+    def effect_grad(dtype, adjoint):
+        xx, rr, p = x.to(dtype), rp.to(dtype), p_hat.to(dtype, copy=True).requires_grad_()
+        with torch.no_grad():
+            y = proc.process_normalized(xx, rr, clip_params=True, adjoint=adjoint)
+        loss = stft_loss(proc.process_normalized(xx, p, clip_params=True, adjoint=adjoint), y)
+        loss.backward()
+        return float(loss.detach()), p.grad.double()
+
+    def grads(dtype, adjoint):
+        m = copy.deepcopy(net)
+        m.load_state_dict(state)
+        m.to(dtype).zero_grad(set_to_none=True)
+        xx, rr = x.to(dtype), rp.to(dtype)
+        with torch.no_grad():
+            y = proc.process_normalized(xx, rr, clip_params=True, adjoint=adjoint)
+        loss, _ = TR.blind_estimation_loss(m, proc, xx, y, adjoint=adjoint)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.double() for k, p in m.named_parameters()}
+
+    for kind, fn in (("effect", effect_grad), ("net", grads)):
+        before = launch_counts()
+        loss_k, g_k = fn(torch.float32, "auto")
+        after = launch_counts()
+        require({k: after[k] - before[k] for k in after if after[k] != before[k]} == BLIND_STEP_LAUNCHES,
+                f"the kernel {kind} gradient did not run through kernel C")
+        loss_p, g_p = fn(torch.float32, "ad")
+        loss_64, g_64 = fn(torch.float64, "ad")
+        require(launch_counts() == after, "the plain paths launched a kernel")
+        lerr = {k: abs(v - loss_64) / loss_64 for k, v in (("kernel", loss_k), ("plain", loss_p))}
+        require(all(math.isfinite(v) for v in (loss_k, loss_p, loss_64)), f"{kind}: non-finite loss")
+        if kind == "effect":
+            # per parameter (column of p_hat), relative to its float64 norm
+            for c, pname in enumerate(proc.param_ranges):
+                n64 = float(g_64[:, c].norm())
+                dist = {k: float((g[:, c] - g_64[:, c]).norm()) / n64 for k, g in (("kernel", g_k), ("plain", g_p))}
+                fp32 = float((g_k[:, c] - g_p[:, c]).norm()) / n64
+                print(f"[blind] d(stft_loss)/d({pname}) at a fixed p_hat, bs {BS} (float64 norm {n64:.6e}): "
+                      f"distance from float64 kernel {dist['kernel']:.3e}, dense plain {dist['plain']:.3e}; "
+                      f"kernel vs dense plain fp32 {fp32:.3e}")
+                require(bool(torch.isfinite(g_k[:, c]).all()), f"effect gradient {pname}: non-finite")
+                require(dist["kernel"] <= 2 * dist["plain"] + EFFECT_GRAD_FLOOR,
+                        f"effect gradient {pname}: distance {dist['kernel']:.3e} > 2 x plain {dist['plain']:.3e} "
+                        f"+ {EFFECT_GRAD_FLOOR}")
+                require(fp32 <= EFFECT_GRAD_FP32_TOL,
+                        f"effect gradient {pname}: kernel vs dense fp32 {fp32:.3e} > {EFFECT_GRAD_FP32_TOL}")
+            print(f"[blind] effect loss {loss_k:.7f} / {loss_p:.7f} / {loss_64:.7f}, rel err kernel "
+                  f"{lerr['kernel']:.3e}, plain {lerr['plain']:.3e}")
+            continue
+        norm = lambda g: math.sqrt(sum(float((v ** 2).sum()) for v in g.values()))  # noqa: E731
+        n64 = norm(g_64)
+        dist = {k: norm({n: g[n] - g_64[n] for n in g_64}) / n64 for k, g in (("kernel", g_k), ("plain", g_p))}
+        nerr = {k: abs(norm(g) - n64) / n64 for k, g in (("kernel", g_k), ("plain", g_p))}
+        print(f"[blind] net gradients against float64 (norm {n64:.6f}; printed only): distance kernel "
+              f"{dist['kernel']:.3e}, dense plain {dist['plain']:.3e}; norm error kernel {nerr['kernel']:.3e}, "
+              f"dense plain {nerr['plain']:.3e}; kernel vs dense plain fp32 "
+              f"{norm({n: g_k[n] - g_p[n] for n in g_p}) / norm(g_p):.3e} of the plain norm; loss "
+              f"{loss_k:.7f} / {loss_p:.7f} / {loss_64:.7f}, rel err kernel {lerr['kernel']:.3e}, "
+              f"plain {lerr['plain']:.3e}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -618,6 +1049,10 @@ def main() -> int:
     res_adj = phase_adjoint_a(rng, device)
     res_bb = phase_ballistics_bwd(rng, device)
     launches = phase_training(args.seed, device, card)
+    configs = frac_delay_configs(rng, device)
+    res_c = phase_frac_delay_fwd(configs, device, card)
+    res_cb = phase_frac_delay_bwd(configs, device, card)
+    launches.update({k: v for k, v in phase_blind(args.seed, device, card).items() if k.startswith("frac_delay")})
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [
@@ -628,6 +1063,8 @@ def main() -> int:
          adj["adjoint"]),
         ("ballistics", "ballistics.cu", "dasp_tpu/ops/pallas_ballistics.py:48", res_b),
         ("ballistics_bwd", "ballistics_bwd.cu", "dasp_tpu/ops/pallas_ballistics.py:69", res_bb),
+        ("frac_delay", "frac_delay.cu", "dasp_tpu/ops/pallas_interp.py:96", res_c[configs[0][0]]),
+        ("frac_delay_bwd", "frac_delay_bwd.cu", "dasp_tpu/ops/pallas_interp.py:135", res_cb[configs[0][0]]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{src}", "replaces": tpu,

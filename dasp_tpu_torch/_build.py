@@ -47,6 +47,8 @@ _SIGNATURES = {
     "sosfilt_cascade_max_sections": ([], _I),
     "ballistics_f32": ([_P, _P, _P, _P, _P, _I, _T, _P], _I),
     "ballistics_bwd_f32": ([_P] * 10 + [_I, _T, _P], _I),
+    "frac_delay_f32": ([_P] * 4 + [_I, _I, _I, _T, _I, _I, _P], _I),
+    "frac_delay_bwd_f32": ([_P] * 7 + [_I, _I, _I, _T, _I, _I, _P], _I),
 }
 
 _log = {"nvcc": ""}

@@ -1,11 +1,11 @@
 """TCN encoder and parameter projector as ``torch.nn`` modules.
 
 PyTorch counterpart of ``dasp_tpu/models/tcn.py`` (``TCNBlock``,
-``Encoder``, ``ParameterProjector``). Audio enters as (batch, channels,
-samples) and the convolutions run in that NCW layout, with no padding (the
-JAX package's ``VALID``). Each block has two PReLUs of one slope each,
-initialised to 0.01 as flax's are. ``models.convert`` carries flax weights
-over.
+``ParameterNetwork``, ``Encoder``, ``ParameterProjector``). Audio enters as
+(batch, channels, samples) and the convolutions run in that NCW layout,
+with no padding (the JAX package's ``VALID``). A PReLU block has two PReLUs
+of one slope each, initialised to 0.01 as flax's are; a ReLU block has no
+activation parameters. ``models.convert`` carries flax weights over.
 
 BatchNorm follows flax's ``nn.BatchNorm`` (see :class:`BatchNorm`): in
 train mode it normalizes with the biased batch statistics and moves the
@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as nnf
 from torch import nn
 
-__all__ = ["BatchNorm", "TCNBlock", "Encoder", "ParameterProjector"]
+__all__ = ["BatchNorm", "TCNBlock", "ParameterNetwork", "Encoder", "ParameterProjector"]
 
 # flax nn.BatchNorm's momentum: running = 0.99 * running + 0.01 * batch
 FLAX_MOMENTUM = 0.99
@@ -73,32 +73,93 @@ class BatchNorm(nn.BatchNorm1d):
 
 
 class TCNBlock(nn.Module):
-    """Strided dilated conv block: conv(s=2, dil=d) -> PReLU -> BN ->
-    conv -> PReLU -> BN (the JAX package's ``activation="prelu"`` block)."""
+    """Strided dilated conv block: conv(s=2, dil=d) -> act -> BN ->
+    conv -> act -> BN, with ``activation`` "prelu" (the style-transfer
+    encoder's) or "relu" (the blind-estimation net's)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 dilation: int = 1, dtype: torch.dtype | None = None):
+                 dilation: int = 1, dtype: torch.dtype | None = None,
+                 activation: str = "prelu"):
         super().__init__()
+        if activation not in ("prelu", "relu"):
+            raise ValueError(f"Unknown activation: {activation!r}. Expected 'prelu' or 'relu'.")
         self.dtype = dtype
         self.conv0 = nn.Conv1d(in_channels, out_channels, kernel_size, stride=2, dilation=dilation)
-        self.prelu0 = nn.PReLU(init=0.01)
+        self.prelu0 = nn.PReLU(init=0.01) if activation == "prelu" else None
         self.bn0 = BatchNorm(out_channels)
         self.conv1 = nn.Conv1d(out_channels, out_channels, kernel_size)
-        self.prelu1 = nn.PReLU(init=0.01)
+        self.prelu1 = nn.PReLU(init=0.01) if activation == "prelu" else None
         self.bn1 = BatchNorm(out_channels)
 
-    def _layer(self, conv: nn.Conv1d, prelu: nn.PReLU, bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    def _layer(self, conv: nn.Conv1d, prelu: nn.PReLU | None, bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is None:
-            return bn(prelu(conv(x)))
-        h = nnf.conv1d(
-            x.to(self.dtype), conv.weight.to(self.dtype), conv.bias.to(self.dtype),
-            stride=conv.stride, dilation=conv.dilation,
-        )
-        return bn(nnf.prelu(h, prelu.weight.to(self.dtype)))
+            h = conv(x)
+        else:
+            h = nnf.conv1d(
+                x.to(self.dtype), conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                stride=conv.stride, dilation=conv.dilation,
+            )
+        if prelu is None:
+            return bn(torch.relu(h))
+        return bn(nnf.prelu(h, prelu.weight.to(h.dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self._layer(self.conv0, self.prelu0, self.bn0, x)
         return self._layer(self.conv1, self.prelu1, self.bn1, x)
+
+
+class ParameterNetwork(nn.Module):
+    """TCN that maps audio to normalized effect parameters: the blocks, the
+    time mean, an optional 2-layer ReLU MLP, and an fp32 linear head with a
+    sigmoid. Dense layers are ``dense0``, ``dense1``, ... in flax's order
+    (the head is the last).
+
+    Presets: :meth:`blind_estimation` (channels 16-32-64-128-128, kernel 3,
+    dilations 1..16, ReLU, linear head) and :meth:`auto_eq` (10 blocks of
+    256 channels, kernel 7, PReLU, 3-layer MLP head). The net runs in its
+    parameters' dtype; the JAX package's bf16 ``dtype`` option has no
+    caller and is not ported.
+    """
+
+    def __init__(self, num_control_params: int,
+                 channels: Sequence[int] = (16, 32, 64, 128, 128), kernel_size: int = 3,
+                 dilations: Sequence[int] = (1, 2, 4, 8, 16), activation: str = "relu",
+                 mlp_hidden: int = 0, in_channels: int = 1):
+        super().__init__()
+        chans = [in_channels, *channels]
+        self.blocks = nn.ModuleList(
+            TCNBlock(chans[i], ch, kernel_size, d, activation=activation)
+            for i, (ch, d) in enumerate(zip(channels, dilations))
+        )
+        widths = [chans[-1], *([mlp_hidden] * 2 if mlp_hidden else []), num_control_params]
+        self.num_dense = len(widths) - 1
+        for i in range(self.num_dense):
+            self.add_module(f"dense{i}", nn.Linear(widths[i], widths[i + 1]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for block in self.blocks:
+            h = block(h)
+        h = h.mean(dim=-1)  # aggregate over time
+        for i in range(self.num_dense - 1):
+            h = torch.relu(getattr(self, f"dense{i}")(h))
+        head = getattr(self, f"dense{self.num_dense - 1}")
+        return torch.sigmoid(head(_at_least_f32(h)))
+
+    @staticmethod
+    def blind_estimation(num_params: int) -> "ParameterNetwork":
+        return ParameterNetwork(num_params)
+
+    @staticmethod
+    def auto_eq(num_params: int, ch_dim: int = 256) -> "ParameterNetwork":
+        return ParameterNetwork(
+            num_params,
+            channels=(ch_dim,) * 10,
+            kernel_size=7,
+            dilations=(1, 2, 4, 8, 16, 1, 2, 4, 8, 16),
+            activation="prelu",
+            mlp_hidden=256,
+        )
 
 
 class Encoder(nn.Module):

@@ -1,10 +1,11 @@
 """Processor layer: normalized-parameter dispatch for neural control.
 
 PyTorch counterpart of the parts of ``dasp_tpu/modules.py`` that the
-style-transfer render runs through. A ``Processor`` owns a parameter-range
-table and turns a ``(batch, num_params)`` tensor of normalized (0, 1)
-parameters, e.g. the sigmoid output of a network, into keyword arguments
-for its functional effect.
+style-transfer render and blind estimation of the delay family run
+through. A ``Processor`` owns a parameter-range table and turns a
+``(batch, num_params)`` tensor of normalized (0, 1) parameters, e.g. the
+sigmoid output of a network, into keyword arguments for its functional
+effect.
 
 PyTorch runs every call eagerly, so the out-of-range check of
 ``process_normalized`` always runs unless ``clip_params=True`` (the JAX
@@ -30,6 +31,9 @@ __all__ = [
     "ParametricEQ",
     "Compressor",
     "NoiseShapedReverb",
+    "Chorus",
+    "Flanger",
+    "PitchShift",
 ]
 
 
@@ -225,3 +229,94 @@ class NoiseShapedReverb(Processor):
         ranges.update({f"band{i}_decay": (min_band_decay, max_band_decay) for i in range(12)})
         ranges["mix"] = (min_mix, max_mix)
         self.param_ranges = ranges
+
+
+class _ModulatedDelay(Processor):
+    """Shared body of Chorus and Flanger: LFO-modulated fractional delay.
+
+    The declared ranges bound the total delay, so the wrapper passes
+    ``max_delay_ms = max_base + max_depth`` to
+    :func:`functional.modulated_delay` (no read of the parameters to the
+    host)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_rate_hz: float,
+        max_rate_hz: float,
+        min_depth_ms: float,
+        max_depth_ms: float,
+        min_base_ms: float,
+        max_base_ms: float,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_default(F.modulated_delay, "max_delay_ms", max_base_ms + max_depth_ms)
+        self.param_ranges = {
+            "rate_hz": (min_rate_hz, max_rate_hz),
+            "depth_ms": (min_depth_ms, max_depth_ms),
+            "base_ms": (min_base_ms, max_base_ms),
+            "mix": (min_mix, max_mix),
+        }
+
+
+class Chorus(_ModulatedDelay):
+    """Chorus: slow LFO, long base delay (~20 ms), moderate depth."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_rate_hz: float = 0.1,
+        max_rate_hz: float = 3.0,
+        min_depth_ms: float = 1.0,
+        max_depth_ms: float = 10.0,
+        min_base_ms: float = 15.0,
+        max_base_ms: float = 35.0,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+    ):
+        super().__init__(sample_rate, min_rate_hz, max_rate_hz, min_depth_ms, max_depth_ms,
+                         min_base_ms, max_base_ms, min_mix, max_mix)
+
+
+class Flanger(_ModulatedDelay):
+    """Flanger: short base delay (< 5 ms) so the comb notches sweep audibly."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_rate_hz: float = 0.05,
+        max_rate_hz: float = 2.0,
+        min_depth_ms: float = 0.5,
+        max_depth_ms: float = 5.0,
+        min_base_ms: float = 0.1,
+        max_base_ms: float = 2.0,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+    ):
+        super().__init__(sample_rate, min_rate_hz, max_rate_hz, min_depth_ms, max_depth_ms,
+                         min_base_ms, max_base_ms, min_mix, max_mix)
+
+
+class PitchShift(Processor):
+    """Dual-tap delay-line pitch shifter (:func:`functional.pitch_shift`).
+
+    ``semitones`` and ``mix`` are normalized parameters; ``window_ms`` is a
+    constructor setting."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_semitones: float = -12.0,
+        max_semitones: float = 12.0,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+        window_ms: float = 60.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_default(F.pitch_shift, "window_ms", window_ms)
+        self.param_ranges = {
+            "semitones": (min_semitones, max_semitones),
+            "mix": (min_mix, max_mix),
+        }

@@ -1,4 +1,4 @@
-"""The self-supervised style-transfer training step.
+"""The training steps: self-supervised style transfer and blind estimation.
 
 PyTorch counterpart of the step the JAX package keeps in ``bench.py``
 (``_step_core``) and ``examples/style_transfer.py`` (``step_fn``). One step:
@@ -23,6 +23,13 @@ one backward).
 The reverb draws its noise from one ``torch.Generator`` (corruption first,
 then the render), where the JAX package splits a PRNG key; tests inject the
 noise instead.
+
+The blind-estimation step (:func:`blind_estimation_step`) is the one of
+``examples/blind_estimation.py``: render the target with random normalized
+parameters (no gradient), run the ``ParameterNetwork`` preset in train mode
+on it, re-render with the prediction, the default STFT loss, backward and
+Adam. With ``PitchShift`` or ``Chorus`` one step launches the
+fractional-delay kernel twice (both renders) and its backward once.
 """
 
 from __future__ import annotations
@@ -31,10 +38,19 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from .models import StyleTransferNet, apply_style_chain, make_style_processors
-from .utils.loss import multi_resolution_stft_loss
+from .models import ParameterNetwork, StyleTransferNet, apply_style_chain, make_style_processors
+from .utils.loss import multi_resolution_stft_loss, stft_loss
 
-__all__ = ["make_style_training", "random_corruption", "corrupt", "render_loss", "train_step"]
+__all__ = [
+    "make_style_training",
+    "random_corruption",
+    "corrupt",
+    "render_loss",
+    "train_step",
+    "make_blind_estimation",
+    "blind_estimation_loss",
+    "blind_estimation_step",
+]
 
 # the JAX package's smoke-scale net and IR (bench.py --smoke, examples --smoke)
 SMOKE_NET = dict(embed_dim=32, ch_dim=8, encoder_dilations=(1, 2, 4))
@@ -165,3 +181,66 @@ def train_step(net: torch.nn.Module, processors: Dict, opt: torch.optim.Optimize
     opt.step()
     mark("optimizer")
     return loss.detach()
+
+
+def make_blind_estimation(processor, *, device=None):
+    """The net and the optimizer of blind estimation for ``processor``: the
+    ``ParameterNetwork.blind_estimation`` preset in train mode on ``device``
+    and Adam at 1e-4 with optax.adam's defaults.
+
+    Returns:
+        ``(net, opt)``.
+    """
+    net = ParameterNetwork.blind_estimation(processor.num_params).to(device).train()
+    opt = torch.optim.Adam(net.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+    return net, opt
+
+
+def blind_estimation_loss(net: torch.nn.Module, processor, x: torch.Tensor, y: torch.Tensor,
+                          **effect_kwargs):
+    """The loss of a blind-estimation step: the net (train mode) estimates
+    normalized parameters from the target ``y``, ``x`` is re-rendered with
+    them, and the default STFT loss compares the two renders.
+    ``effect_kwargs`` go to the effect (e.g. ``adjoint="ad"`` for the dense
+    plain fractional delay).
+
+    Returns:
+        ``(loss, p_hat)``.
+    """
+    net.train()
+    p_hat = net(y)
+    y_hat = processor.process_normalized(x, p_hat, clip_params=True, **effect_kwargs)
+    return stft_loss(y_hat, y), p_hat
+
+
+def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Optimizer,
+                          x: torch.Tensor, rand_params: torch.Tensor,
+                          mark: Optional[Callable[[str], None]] = None):
+    """One blind-estimation step (see the module docstring). Updates the
+    net's parameters and BatchNorm statistics and the optimizer's state in
+    place.
+
+    Args:
+        x: clean clips, (bs, chs, T).
+        rand_params: normalized parameters of the target render,
+            (bs, processor.num_params), on (0, 1).
+        mark: called with "target", "forward", "backward" and "optimizer"
+            as each part ends (e.g. to record CUDA events).
+
+    Returns:
+        ``(loss, param_l1)``, detached: the STFT loss and the mean absolute
+        error of the predicted normalized parameters (before the update).
+    """
+    mark = mark or (lambda name: None)
+    with torch.no_grad():
+        y = processor.process_normalized(x, rand_params, clip_params=True)
+    mark("target")
+    loss, p_hat = blind_estimation_loss(net, processor, x, y)
+    mark("forward")
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    mark("backward")
+    opt.step()
+    mark("optimizer")
+    param_l1 = torch.mean(torch.abs(p_hat.detach() - rand_params))
+    return loss.detach(), param_l1

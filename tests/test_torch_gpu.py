@@ -17,7 +17,12 @@ while at the path's 131072 samples the plain version's block carries
 dominate (chip_smoke.py phase 5 holds the strict 2x rule there: kernel
 1.2e-4, plain 1.7e-2); the ballistics kernels bitwise equal to their
 plain loops; a smoke-width training step through all kernel uses within
-1e-3 (loss) and 1e-2 (gradient norm) of the plain path.
+1e-3 (loss) and 1e-2 (gradient norm) of the plain path. The
+fractional-delay kernels (C-fwd, C-bwd) against their plain engine on the
+same card tensors: the forward, dd and dg bitwise equal (the same fp32
+operations in the same order, at most two channels), dx within 1e-6 of its
+largest value (both sum by atomics, in an order that changes from run to
+run).
 """
 
 import numpy as np
@@ -28,6 +33,7 @@ import torch
 from dasp_tpu_torch import functional as F
 from dasp_tpu_torch.modules import ParametricEQ
 from dasp_tpu_torch.ops import ballistics_kernel as BK
+from dasp_tpu_torch.ops import frac_delay_kernel as FK
 from dasp_tpu_torch.ops import iir_kernel as IK
 
 SR = 44100
@@ -41,6 +47,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run `python -m pytest -m gpu tests/test_torch_gpu.py` on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -232,3 +239,114 @@ def test_render_runs_through_both_kernels(cuda):
         y_p = apply_style_chain(plain, x, params, generator=torch.Generator(device=cuda).manual_seed(1))
     assert y_k.shape == (2, 2, 8192) and bool(torch.isfinite(y_k).all())
     assert float((y_k - y_p).abs().max()) <= 2 * A_TOL * float(y_p.abs().max())
+
+
+def frac_delay_case(nt, chs, T, B, Dm, seed=0, edge=False):
+    """x_ext, d_stk, g_stk for the kernel: LFO or sawtooth delays in [0,
+    Dm - 1), gains in (0, 1); ``edge`` puts d = 0 on the last sample of
+    every tile (read position W - 1, whose second point is past the
+    window)."""
+    rng = np.random.default_rng(seed)
+    nb = -(-T // B)
+    Tp = nb * B
+    x = np.pad(rng.standard_normal((2, chs, T)).astype(np.float32) * 0.3, ((0, 0), (0, 0), (Dm, Tp - T)))
+    n = np.arange(Tp)[None, :]
+    d, g = [], []
+    for i in range(nt):
+        p = ((0.3 - 0.7 * i) * n / (Dm - 2) + 0.5 * i + rng.uniform(0, 1, (2, 1))) % 1.0
+        d.append((Dm - 2) * p)
+        g.append(np.sin(np.pi * p))
+    d = np.stack(d).astype(np.float32)
+    if edge:
+        d[..., B - 1 :: B] = 0.0
+    return [torch.tensor(a) for a in (x, d, np.stack(g).astype(np.float32))]
+
+
+def c_counts():
+    return FK.frac_delay_pallas.launches, FK.frac_delay_pallas.bwd_launches
+
+
+@pytest.mark.parametrize("nt,chs,T,B,Dm,edge", [
+    (1, 1, 4096, 512, 1986, False),
+    (2, 2, 4096, 256, 2647, False),
+    (2, 1, 5000, 256, 300, True),  # T is not a multiple of B; d = 0 at tile ends
+    (1, 2, 131072, 512, 1986, True),
+])
+def test_frac_delay_kernels_match_plain_engine(cuda, nt, chs, T, B, Dm, edge):
+    x_ext, d, g = (a.to(cuda) for a in frac_delay_case(nt, chs, T, B, Dm, edge=edge))
+    ct = torch.randn(2, chs, d.shape[-1], device=cuda)
+    before = c_counts()
+    leaves = [a.clone().requires_grad_() for a in (x_ext, d, g)]
+    wet = FK.frac_delay_pallas(*leaves, B, Dm)
+    (wet * ct).sum().backward()
+    assert tuple(a - b for a, b in zip(c_counts(), before)) == (1, 1)
+    assert bool(torch.isfinite(wet).all())
+    assert torch.equal(wet, FK.frac_delay_plain(x_ext, d, g, B, Dm))
+    dx_p, dd_p, dg_p = FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm)
+    assert torch.equal(leaves[1].grad, dd_p) and torch.equal(leaves[2].grad, dg_p)
+    assert float((leaves[0].grad - dx_p).abs().max()) <= 1e-6 * float(dx_p.abs().max())
+
+
+def test_frac_delay_right_edge_reads_nothing_past_the_window(cuda):
+    """d = 0 on the last sample of the last tile: the second lattice point
+    is one past the end of x_ext, where a NaN is planted; it must count
+    zero."""
+    B, Dm = 256, 300
+    x_ext, d, g = frac_delay_case(1, 1, 1024, B, Dm, edge=True)
+    buf = torch.cat([x_ext[:1], torch.full((1, 1, 1), float("nan"))], dim=-1).to(cuda)
+    xe = buf[..., :-1]
+    assert xe.is_contiguous()
+    d, g = d[:, :1].to(cuda), g[:, :1].to(cuda)
+    wet = FK.frac_delay_pallas(xe, d, g, B, Dm)
+    assert bool(torch.isfinite(wet).all())
+    ct = torch.ones_like(wet)
+    dx, dd, dg = FK._CudaEngine.backward(xe, d, g, ct, B, Dm)
+    assert all(bool(torch.isfinite(v).all()) for v in (dx, dd, dg))
+    assert torch.equal(wet.cpu(), FK.frac_delay_plain(xe.cpu(), d.cpu(), g.cpu(), B, Dm))
+
+
+def test_frac_delay_backward_dd_dg_are_reproducible(cuda):
+    x_ext, d, g = (a.to(cuda) for a in frac_delay_case(2, 2, 131072, 256, 2647))
+    ct = torch.randn(2, 2, d.shape[-1], device=cuda)
+    runs = [FK._CudaEngine.backward(x_ext, d, g, ct, 256, 2647) for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
+    scale = float(runs[0][0].abs().max())
+    assert float((runs[0][0] - runs[1][0]).abs().max()) <= 1e-6 * scale
+    # dx is skipped when not asked for
+    assert FK._CudaEngine.backward(x_ext, d, g, ct, 256, 2647, need_dx=False)[0] is None
+
+
+def test_frac_delay_wrapper_checks_inputs(cuda):
+    x_ext, d, g = (a.to(cuda) for a in frac_delay_case(1, 1, 1024, 256, 300))
+    with pytest.raises(TypeError):
+        FK.frac_delay_pallas(x_ext.double(), d.double(), g.double(), 256, 300)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.frac_delay_pallas(x_ext, torch.cat([d, d], -1)[..., ::2], g, 256, 300)
+
+
+@pytest.mark.parametrize("name", ["PitchShift", "Chorus"])
+def test_blind_estimation_step_through_kernel_c(cuda, name):
+    """A smoke-size blind-estimation step on the card: C-fwd twice and C-bwd
+    once, neither A nor B; finite loss; the parameters move; the loss is
+    that of the same step on the CPU within 2e-3 relative (the two devices'
+    sin and pow move fp32 read positions by up to 1e-4 samples, as between
+    the two packages in tests/test_torch_blind.py)."""
+    from dasp_tpu_torch import modules as M
+    from dasp_tpu_torch import train as TR
+
+    proc = getattr(M, name)(SR)
+    x = torch.tensor((np.random.default_rng(3).standard_normal((2, 1, 16384)) * 0.25).astype(np.float32))
+    rp = torch.tensor(np.random.default_rng(4).uniform(size=(2, proc.num_params)).astype(np.float32))
+    torch.manual_seed(0)
+    net, opt = TR.make_blind_estimation(proc, device=cuda)
+    start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    before, before_ab = c_counts(), counts()
+    loss, _ = TR.blind_estimation_step(net, proc, opt, x.to(cuda), rp.to(cuda))
+    assert tuple(a - b for a, b in zip(c_counts(), before)) == (2, 1)
+    assert counts() == before_ab
+    assert bool(torch.isfinite(loss))
+    assert all(not torch.equal(start[k], p) for k, p in net.named_parameters())
+    net_cpu, opt_cpu = TR.make_blind_estimation(proc)
+    net_cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    loss_cpu, _ = TR.blind_estimation_step(net_cpu, proc, opt_cpu, x, rp)
+    assert abs(float(loss) - float(loss_cpu)) <= 2e-3 * float(loss_cpu)
