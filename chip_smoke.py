@@ -7,9 +7,11 @@ of the pitch shifter and chorus at full width:
 
   phase 0  the card: name and power limit (nvidia-smi); fails without CUDA
   phase 1  build (nvcc, sm_90a) and load the kernels; build time
-  phase 2  biquad-cascade kernel (A) on the EQ's shapes (8 rows x 131072,
-           6 sections) and the one-pole case (1 section), against float64
-           scipy and against its plain PyTorch version
+  phase 2  biquad-cascade kernel (A, a time-parallel chunked scan) on the
+           EQ's shapes (8 rows x 131072, 6 sections), at a ragged T, on the
+           one-pole case (1 section) and on the EQ's hardest corner (a 20 Hz /
+           Q 6 low shelf), against float64 scipy and against its plain
+           PyTorch version; wrapper and kernel-only device times
   phase 3  ballistics kernel (B) on a compressor gain curve (8 x 1 x 131072):
            bitwise equal to the plain loop, chunk-chained == one pass
   phase 4  the slice: full-width StyleTransferNet (bf16 encoder convolutions,
@@ -18,8 +20,10 @@ of the pitch shifter and chorus at full width:
            (input, reference) pairs of 131072 samples; launch counts, output
            checks, agreement with the plain path, per-batch latencies
   phase 5  kernel A's gradient (save-all forward + adjoint cascade) at the
-           EQ's shapes (6 sections, 7 in the adjoint) and the one-pole's:
-           dsos and dx against float64 autograd and the plain fp32 adjoint
+           EQ's shapes (6 sections, 7 in the adjoint), at a ragged T, the
+           one-pole's and the 20 Hz / Q 6 shelf's: dsos and dx against
+           float64 autograd and the plain fp32 adjoint; times of the two
+           launches and of the gradient's correlations
   phase 6  the ballistics backward kernel (B-bwd) on a compressor gain curve:
            bitwise equal to the plain reverse loop; the gradient through
            chunk-chained evaluation against the one-pass gradient
@@ -50,7 +54,10 @@ of the pitch shifter and chorus at full width:
            (kernel fp32, dense plain fp32, dense float64) held to bounds,
            and the net's gradients the same three ways, printed
 
-Prints one JSON line of per-kernel results, then as its last line
+Prints one JSON line of per-kernel results (with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
+an H100 SXM's published peaks; no single PyTorch call computes any of these
+functions, so ``library_ms`` is null), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -80,6 +87,9 @@ A_PLAIN_FACTOR = 2.0
 # gradient (tests/test_torch_kernels.py's bounds: the gradient with respect
 # to denominator coefficients is ill-conditioned in fp32)
 A_GRAD_BOUND = {"dsos": 1e-2, "dx": 1e-3}
+# the ragged case of kernel A: T - RAGGED samples, no multiple of the
+# kernel's 32-sample chunk or 8192-sample tile
+RAGGED = 1234
 TRAIN_STEPS = 3
 FULL_WIDTH_PARAMS = 10_322_246
 # launches per training step: A forward in the corruption, save-all in the
@@ -127,8 +137,24 @@ EFFECT_GRAD_FLOOR = 1e-2
 EFFECT_GRAD_FP32_TOL = 1e-2
 
 
+# an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
+# and fp32 operations outside the tensor cores, per second
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# fp32 operations per sample of a biquad section (5 multiplies, 4 adds)
+SECTION_OPS = 9
+
+
 class PhaseError(RuntimeError):
     pass
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over HBM's rate, or operations over the
+    fp32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -199,6 +225,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms_by_kernel(fn, kernels, reps: int) -> dict:
+    """Device time per call of ``fn``, from a CUDA-only torch.profiler trace
+    of ``reps`` calls after a warm-up: of the CUDA kernels whose name holds
+    each of ``kernels``, and of all device work ("all"); None where the
+    trace shows none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name in (*kernels, "all"):
+        us = sum(getattr(e, "device_time_total", 0) for e in events if name == "all" or name in e.key)
+        out[name] = us / reps / 1e3 if us > 0 else None
+    return out
+
+
+def kernel_device_ms(fn, kernel: str, reps: int):
+    """Device time per call of ``fn`` of the CUDA kernels whose name holds
+    ``kernel`` (see :func:`device_ms_by_kernel`)."""
+    return device_ms_by_kernel(fn, (kernel,), reps)[kernel]
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def shelf_sos(bs, device):
+    """The EQ's hardest corner (ParametricEQ's low shelf at its 20 Hz and
+    Q 6 limits, +12 dB): one section whose poles lie about 2.5e-4 from the
+    unit circle."""
+    import torch
+
+    from dasp_tpu_torch.ops import biquad
+
+    b, a = biquad(*(torch.full((bs,), v, device=device) for v in (12.0, 20.0, 6.0)), SR, "low_shelf")
+    return torch.cat([b, a], dim=-1)[:, None, :]
+
+
 def random_params(proc, rng, bs, device):
     """Denormalized parameters of ``proc`` from uniform (0, 1) draws."""
     import torch
@@ -224,26 +294,35 @@ def phase_kernel_a(rng, device):
     alpha = torch.exp(-math.log(9.0) / (SR * comp["attack_ms"] / 1e3))
     sos1 = embed_first_order_sos(*onepole_ba(alpha))[:, None, :]
     x = torch.tensor((rng.standard_normal((BS, 1, T)) * 0.25).astype(np.float32), device=device)
+    ragged = x[..., : T - RAGGED].contiguous()
 
     results = {}
-    for name, sos in (("S=6 (EQ)", sos6), ("S=1 (one-pole)", sos1)):
-        y_k = sosfilt_pallas(sos, x)
-        y_p = sosfilt_plain(sos, x)
+    # (name, sections, signal, time the plain version too)
+    for name, sos, sig, plain_time in (("S=6 (EQ)", sos6, x, True), ("S=6 (EQ), ragged T", sos6, ragged, False),
+                                       ("S=1 (one-pole)", sos1, x, True),
+                                       ("S=1 (20 Hz / Q 6 shelf)", shelf_sos(BS, device), x, False)):
+        n = sig.shape[-1]
+        y_k = sosfilt_pallas(sos, sig)
+        y_p = sosfilt_plain(sos, sig)
         torch.cuda.synchronize()
-        sos64 = sos.double().cpu().numpy()
-        x64 = x.double().cpu().numpy()[:, 0]
+        sos64 = stabilize_sos(sos).double().cpu().numpy()
+        x64 = sig.double().cpu().numpy()[:, 0]
         ref = np.stack([scipy.signal.sosfilt(sos64[i], x64[i]) for i in range(BS)])
         err_k = float(np.abs(y_k.double().cpu().numpy()[:, 0] - ref).max())
         err_p = float(np.abs(y_p.double().cpu().numpy()[:, 0] - ref).max())
         diff = float((y_k - y_p).abs().max())
-        ms = cuda_ms(lambda: sosfilt_pallas(sos, x), 20)
-        plain_ms = cuda_ms(lambda: sosfilt_plain(sos, x), 2)
-        print(f"[A {name}] kernel vs float64 {err_k:.3e} | plain vs float64 {err_p:.3e} | "
-              f"kernel vs plain {diff:.3e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        ms = cuda_ms(lambda: sosfilt_pallas(sos, sig), 20)
+        dev_ms = kernel_device_ms(lambda: sosfilt_pallas(sos, sig), "sosfilt_cascade_kernel", 20)
+        plain_ms = cuda_ms(lambda: sosfilt_plain(sos, sig), 2) if plain_time else None
+        S = sos.shape[1]
+        b = bound(2 * BS * n * 4 + sos.numel() * 4, SECTION_OPS * BS * n * S)
+        print(f"[A {name}] T {n} | kernel vs float64 {err_k:.3e} | plain vs float64 {err_p:.3e} | "
+              f"kernel vs plain {diff:.3e} | kernel {ms:.4f} ms a call (kernel alone {fmt_ms(dev_ms)} on the "
+              f"device; bound {b['bound_ms']:.5f} ms by {b['bound_by']}), plain {fmt_ms(plain_ms)}")
         require(err_k <= A_BOUND, f"kernel A {name}: error {err_k:.3e} > {A_BOUND}")
         require(err_k <= A_PLAIN_FACTOR * err_p,
                 f"kernel A {name}: error {err_k:.3e} > {A_PLAIN_FACTOR} x plain {err_p:.3e}")
-        results[name] = {"err": err_k, "ms": ms, "plain_ms": plain_ms}
+        results[name] = {"err": err_k, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **b}
     return results
 
 
@@ -283,7 +362,9 @@ def phase_kernel_b(rng, device):
           f"plain loop on the card {plain_ms:.1f} ms (one run, host clock)")
     require(bitwise, f"kernel B differs from the plain loop by {diff:.3e}")
     require(chained, "kernel B chunk-chained evaluation differs from one pass")
-    return {"err": diff, "ms": ms, "plain_ms": plain_ms}
+    # g read, y written (the coefficients are 8 numbers each); a compare,
+    # a select and one multiply-add pair per sample
+    return {"err": diff, "ms": ms, "plain_ms": plain_ms, **bound(2 * BS * T * 4, 4 * BS * T)}
 
 
 def phase_slice(seed, device, card):
@@ -403,19 +484,23 @@ def phase_adjoint_a(rng, device):
     comp = random_params(Compressor(SR), rng, BS, device)
     alpha = torch.exp(-math.log(9.0) / (SR * comp["attack_ms"] / 1e3))
     sos1 = embed_first_order_sos(*onepole_ba(alpha))[:, None, :]
-    x = torch.tensor((rng.standard_normal((BS, 1, T)) * 0.25).astype(np.float32), device=device)
-    w = torch.tensor(rng.standard_normal((BS, 1, T)).astype(np.float32), device=device)
+    x_full = torch.tensor((rng.standard_normal((BS, 1, T)) * 0.25).astype(np.float32), device=device)
+    w_full = torch.tensor(rng.standard_normal((BS, 1, T)).astype(np.float32), device=device)
 
     results = {}
-    for name, sos in (("S=6 (EQ)", sos6), ("S=1 (one-pole)", sos1)):
+    # (name, sections, samples, time the launches)
+    for name, sos, n, timed in (("S=6 (EQ)", sos6, T, True), ("S=6 (EQ), ragged T", sos6, T - RAGGED, False),
+                                ("S=1 (one-pole)", sos1, T, True),
+                                ("S=1 (20 Hz / Q 6 shelf)", shelf_sos(BS, device), T, False)):
         S = sos.shape[1]
         sos = sos.contiguous()
-        rows_x, rows_w = x.reshape(BS, T), w.reshape(BS, T)
+        x, w = x_full[..., :n].contiguous(), w_full[..., :n].contiguous()
+        rows_x, rows_w = x.reshape(BS, n), w.reshape(BS, n)
 
         def kernel_grads():
             s_, x_ = sos.clone().requires_grad_(), x.clone().requires_grad_()
             (IK.sosfilt_pallas(s_, x_) * w).sum().backward()
-            return {"dsos": s_.grad, "dx": x_.grad.reshape(BS, T)}
+            return {"dsos": s_.grad, "dx": x_.grad.reshape(BS, n)}
 
         before = launch_counts()
         got = kernel_grads()
@@ -431,27 +516,41 @@ def phase_adjoint_a(rng, device):
         e_k, e_p = grad_errors(got, truth), grad_errors(plain, truth)
         for g in truth:
             require(bool(torch.isfinite(got[g]).all()), f"kernel A gradient {name}: non-finite {g}")
-            print(f"[A-adjoint {name}] {g}: kernel vs float64 {e_k[g][0]:.3e} ({e_k[g][1]:.3e} of max) | "
+            print(f"[A-adjoint {name}] T {n} | {g}: kernel vs float64 {e_k[g][0]:.3e} ({e_k[g][1]:.3e} of max) | "
                   f"plain adjoint vs float64 {e_p[g][0]:.3e} ({e_p[g][1]:.3e} of max)")
             require(e_k[g][1] <= A_GRAD_BOUND[g],
                     f"kernel A gradient {name}: {g} error {e_k[g][1]:.3e} of max > {A_GRAD_BOUND[g]}")
             require(e_k[g][0] <= A_PLAIN_FACTOR * e_p[g][0],
                     f"kernel A gradient {name}: {g} error {e_k[g][0]:.3e} > {A_PLAIN_FACTOR} x plain {e_p[g][0]:.3e}")
 
+        if not timed:
+            continue
         # the two launches alone, at the path's shapes
         inters = IK._CudaEngine.save_all(sos, rows_x)
         inters64 = IK.sosfilt_rows_plain(sos.double(), rows_x.double(), save_all=True)
         save_err = float((inters.double() - inters64).abs().max())
         adj = adjoint_sos(sos).contiguous()
+        outs = IK._CudaEngine.adjoint(adj, rows_w)
         ms_save = cuda_ms(lambda: IK._CudaEngine.save_all(sos, rows_x), 20)
         ms_adj = cuda_ms(lambda: IK._CudaEngine.adjoint(adj, rows_w), 20)
+        dev_save = kernel_device_ms(lambda: IK._CudaEngine.save_all(sos, rows_x), "sosfilt_cascade_kernel", 20)
+        dev_adj = kernel_device_ms(lambda: IK._CudaEngine.adjoint(adj, rows_w), "sosfilt_cascade_kernel", 20)
+        # the rest of the backward: adjoint sections, section inputs and the
+        # coefficient correlations, PyTorch ops over (S, R, T)
+        ms_corr = cuda_ms(lambda: IK._vjp(sos, rows_x, inters, rows_w, lambda *_: outs), 20)
         plain_save = cuda_ms(lambda: IK._PlainEngine.save_all(sos, rows_x), 2)
         plain_adj = cuda_ms(lambda: IK._PlainEngine.adjoint(adj, rows_w), 2)
-        print(f"[A-adjoint {name}] save-all ({S} sections) {ms_save:.4f} ms, plain {plain_save:.4f} ms, "
-              f"every section vs float64 {save_err:.3e} | adjoint ({S + 1} sections) {ms_adj:.4f} ms, "
-              f"plain {plain_adj:.4f} ms")
-        results[name] = {"save_all": {"err": save_err, "ms": ms_save, "plain_ms": plain_save},
-                         "adjoint": {"err": e_k["dx"][0], "ms": ms_adj, "plain_ms": plain_adj}}
+        plane = BS * n * 4
+        b_save = bound(plane * (1 + S) + sos.numel() * 4, SECTION_OPS * BS * n * S)
+        b_adj = bound(plane * (2 + S) + adj.numel() * 4, SECTION_OPS * BS * n * (S + 1))
+        print(f"[A-adjoint {name}] save-all ({S} sections) {ms_save:.4f} ms a call (kernel alone "
+              f"{fmt_ms(dev_save)}; bound {b_save['bound_ms']:.5f} ms by {b_save['bound_by']}), plain "
+              f"{plain_save:.4f} ms, every section vs float64 {save_err:.3e} | adjoint ({S + 1} sections) "
+              f"{ms_adj:.4f} ms a call (kernel alone {fmt_ms(dev_adj)}; bound {b_adj['bound_ms']:.5f} ms by "
+              f"{b_adj['bound_by']}), plain {plain_adj:.4f} ms | the gradient's correlations "
+              f"(_vjp without the adjoint launch) {ms_corr:.4f} ms")
+        results[name] = {"save_all": {"err": save_err, "ms": ms_save, "plain_ms": plain_save, **b_save},
+                         "adjoint": {"err": e_k["dx"][0], "ms": ms_adj, "plain_ms": plain_adj, **b_adj}}
     return results
 
 
@@ -532,7 +631,8 @@ def phase_ballistics_bwd(rng, device):
     plain_ms = host_ms(lambda: BK.ballistics_bwd_rows_plain(y_rows, g_rows, aa, ar, y0_rows, ct_rows))
     print(f"[B-bwd] kernel {ms:.4f} ms, plain reverse loop on the card {plain_ms:.1f} ms "
           f"(one run, host clock)")
-    return {"err": diff, "ms": ms, "plain_ms": plain_ms}
+    # y, g and the cotangent read, dg written; about 6 operations a sample
+    return {"err": diff, "ms": ms, "plain_ms": plain_ms, **bound(4 * BS * T * 4, 6 * BS * T)}
 
 
 def phase_training(seed, device, card):
@@ -596,6 +696,11 @@ def phase_training(seed, device, card):
     mean_ms = sum(steps) / TRAIN_STEPS
     print(f"[train] {1e3 / mean_ms:.4f} steps/s (CUDA events, mean of {TRAIN_STEPS} steps "
           f"{mean_ms:.3f} ms) | {card}")
+    split = device_ms_by_kernel(lambda: TR.train_step(net, procs, opt, *batches[1], generator=noise_gen),
+                                ("sosfilt_cascade_kernel", "ballistics_kernel", "ballistics_bwd_kernel"), 1)
+    print(f"[train] device time of one step (CUDA-only profiler trace): all device work {fmt_ms(split['all'])}, "
+          f"kernel A (3 uses) {fmt_ms(split['sosfilt_cascade_kernel'])}, B-fwd (2 launches) "
+          f"{fmt_ms(split['ballistics_kernel'])}, B-bwd {fmt_ms(split['ballistics_bwd_kernel'])} | {card}")
 
     # one step's gradients again, on the plain path: same weights, batch,
     # corruption output and render noise
@@ -732,7 +837,12 @@ def phase_frac_delay_fwd(configs, device, card):
             require(bool(torch.isfinite(wet_k).all()), f"C-fwd {name}: non-finite output")
             require(err["kernel"] <= 2 * err["dense"] + C_FWD_FLOOR,
                     f"C-fwd {name}: error {err['kernel']:.3e} > 2 x dense {err['dense']:.3e} + {C_FWD_FLOOR}")
-            results[name] = {"err": err["kernel"], "ms": ms, "plain_ms": ms_e, "dense_ms": ms_d}
+            # x_ext, delays and gains read, wet written; per tap and output
+            # sample about 10 operations (read position, two weights, two
+            # multiply-adds, the gain)
+            nbytes = 4 * (x_ext.numel() + d.numel() + g.numel() + wet_k.numel())
+            results[name] = {"err": err["kernel"], "ms": ms, "plain_ms": ms_e, "dense_ms": ms_d,
+                             **bound(nbytes, 10 * d.shape[0] * wet_k.numel())}
 
     # the whole effects at fdt_ab scale: forward, and the gradient of
     # mean(y ** 2) with respect to the audio and every parameter
@@ -833,7 +943,11 @@ def phase_frac_delay_bwd(configs, device, card):
         print(f"[C-bwd {name}] without dx: dd, dg vs plain engine {res_nodx:.3e} abs | kernel {ms:.4f} ms with dx, "
               f"{ms_nodx:.4f} ms without | plain engine {ms_e:.4f} ms with dx, {ms_e_nodx:.4f} ms without | "
               f"dense forward + autograd {ms_d:.3f} ms | {card}")
-        results[name] = {"err": res_nodx, "ms": ms_nodx, "plain_ms": ms_e_nodx}
+        # without dx: x_ext, delays, gains and the cotangent read, dd and dg
+        # written; about 12 operations per tap and output sample
+        nbytes = 4 * (x_ext.numel() + d.numel() + g.numel() + ct.numel() + dd_k.numel() + dg_k.numel())
+        results[name] = {"err": res_nodx, "ms": ms_nodx, "plain_ms": ms_e_nodx,
+                         **bound(nbytes, 12 * d.shape[0] * ct.numel())}
 
     # the reference kernel's fault: a ramp with dr/dt = 20, smooth within
     # each tile, on a quarter-sample grid (exact fp32 read positions)
@@ -1068,7 +1182,8 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{src}", "replaces": tpu,
-         "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for name, src, tpu, r in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

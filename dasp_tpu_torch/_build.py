@@ -41,10 +41,11 @@ _I = ctypes.c_int
 _T = ctypes.c_longlong
 # entry point -> (argtypes, restype)
 _SIGNATURES = {
-    "sosfilt_cascade_f32": ([_P, _P, _P, _I, _I, _T, _P], _I),
-    "sosfilt_cascade_save_all_f32": ([_P, _P, _P, _I, _I, _T, _P], _I),
-    "sosfilt_cascade_adjoint_f32": ([_P, _P, _P, _I, _I, _T, _P], _I),
+    "sosfilt_cascade_f32": ([_P, _P, _P, _I, _I, _T, _P, _P, _P], _I),
+    "sosfilt_cascade_save_all_f32": ([_P, _P, _P, _I, _I, _T, _P, _P, _P], _I),
+    "sosfilt_cascade_adjoint_f32": ([_P, _P, _P, _I, _I, _T, _P, _P, _P], _I),
     "sosfilt_cascade_max_sections": ([], _I),
+    "sosfilt_cascade_tile": ([], _I),
     "ballistics_f32": ([_P, _P, _P, _P, _P, _I, _T, _P], _I),
     "ballistics_bwd_f32": ([_P] * 10 + [_I, _T, _P], _I),
     "frac_delay_f32": ([_P] * 4 + [_I, _I, _I, _T, _I, _I, _P], _I),

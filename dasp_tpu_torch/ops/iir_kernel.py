@@ -4,9 +4,11 @@ version.
 PyTorch counterpart of ``dasp_tpu/ops/pallas_iir.py``. For tensors on a
 CUDA device the cascade runs in the hand-written kernel of
 ``csrc/sosfilt_cascade.cuh`` (entry points ``sosfilt_cascade.cu``,
-``sosfilt_cascade_save_all.cu`` and ``sosfilt_cascade_adjoint.cu``): one
-thread per row walks time and advances all sections per sample in direct
-form I. For tensors on the CPU it runs
+``sosfilt_cascade_save_all.cu`` and ``sosfilt_cascade_adjoint.cu``), a
+time-parallel chunked scan: each thread walks a 32-sample chunk of a row
+from zero state, a 2x2 carry per section is scanned across chunks and
+tiles in float64, and each chunk is walked again from its true state. For
+tensors on the CPU it runs
 :func:`sosfilt_rows_plain`, the block-state formulation the TPU kernel
 computes: per block of L samples,
 
@@ -32,7 +34,8 @@ plain forward) stays the independent reference.
 
 Three uses of the kernel are counted apart: ``sosfilt_pallas.launches``
 (forward), ``.save_all_launches`` (forward with residuals) and
-``.adjoint_launches`` (backward).
+``.adjoint_launches`` (backward), one count per use; each use is one zero
+fill of the scan's scratch and one kernel launch on the device.
 
 The names ``sosfilt_pallas`` / ``lfilter1_pallas`` are kept from the JAX
 package so that ``filter_method="pallas"`` and ``smoother="pallas"`` mean
@@ -167,15 +170,22 @@ def _launch(use: str, sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"sosfilt kernel takes at most {lib.sosfilt_cascade_max_sections()} sections, got {S}"
         )
+    # the chunked scan's scratch: a tile counter and per tile the sections
+    # published (zeroed), and each tile's outgoing state per section
+    tiles = R * -(-T // lib.sosfilt_cascade_tile())
+    sync = torch.zeros(1 + tiles, dtype=torch.int32, device=x.device)
+    states = torch.empty(tiles * S * 2, dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, name)(sos.data_ptr(), x.data_ptr(), y.data_ptr(), R, S, T, stream)
+        err = getattr(lib, name)(sos.data_ptr(), x.data_ptr(), y.data_ptr(), R, S, T,
+                                 sync.data_ptr(), states.data_ptr(), stream)
     _build.check(err, name)
     return y
 
 
 class _CudaEngine:
-    """The three uses of the cascade, each one launch of the CUDA kernel."""
+    """The three uses of the cascade, each one launch of the CUDA kernel
+    (after the zero fill of its scratch)."""
 
     @staticmethod
     def forward(sos, x):

@@ -57,6 +57,16 @@ SMOKE_NET = dict(embed_dim=32, ch_dim=8, encoder_dilations=(1, 2, 4))
 SMOKE_IR = 2048
 
 
+def _entry_device(device) -> torch.device:
+    """The device an entry point builds on: the one the caller names, else
+    the CUDA card. Never the CPU unless named."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: name one, or pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def make_style_training(
     sample_rate: int = 44100,
     *,
@@ -76,6 +86,10 @@ def make_style_training(
     optax.adam's defaults (betas 0.9 / 0.999, eps 1e-8 outside the square
     root, bias-corrected), which are torch's.
 
+    Args:
+        device: where the net lives; None means the CUDA card (raises
+            without one). The CPU runs only when named.
+
     Returns:
         ``(net, processors, opt)``, the net in train mode on ``device``.
     """
@@ -86,7 +100,7 @@ def make_style_training(
         compressor_smoother=compressor_smoother,
         reverb_noise_mode="frequency",
     )
-    net = StyleTransferNet(**(SMOKE_NET if smoke else {}), dtype=dtype).to(device).train()
+    net = StyleTransferNet(**(SMOKE_NET if smoke else {}), dtype=dtype).to(_entry_device(device)).train()
     opt = torch.optim.Adam(net.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
     return net, processors, opt
 
@@ -94,7 +108,9 @@ def make_style_training(
 def random_corruption(generator: torch.Generator, bs: int, processors: Dict, device=None):
     """Uniform corruption parameters as ``bench.py`` draws them: normalized
     EQ, compressor and reverb parameters on (0, 1), gains g1 and g2 on
-    (0, 24) dB of shape (bs, 1, 1)."""
+    (0, 24) dB of shape (bs, 1, 1), on ``device`` (the generator's when
+    None)."""
+    device = generator.device if device is None else device
 
     def u(*shape, high=1.0):
         return high * torch.rand(shape, generator=generator, device=device)
@@ -186,12 +202,13 @@ def train_step(net: torch.nn.Module, processors: Dict, opt: torch.optim.Optimize
 def make_blind_estimation(processor, *, device=None):
     """The net and the optimizer of blind estimation for ``processor``: the
     ``ParameterNetwork.blind_estimation`` preset in train mode on ``device``
-    and Adam at 1e-4 with optax.adam's defaults.
+    (None means the CUDA card, and raises without one; the CPU runs only
+    when named) and Adam at 1e-4 with optax.adam's defaults.
 
     Returns:
         ``(net, opt)``.
     """
-    net = ParameterNetwork.blind_estimation(processor.num_params).to(device).train()
+    net = ParameterNetwork.blind_estimation(processor.num_params).to(_entry_device(device)).train()
     opt = torch.optim.Adam(net.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
     return net, opt
 

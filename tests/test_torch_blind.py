@@ -195,7 +195,7 @@ def port_step(name, variables, torch_dtype, data_dtype=np.float32):
     """The port's step on the clips and parameters of ``batch(data_dtype)``."""
     proc = PROCS[name][0](SR)
     x, rp = batch(proc.num_params, data_dtype)
-    net, opt = TR.make_blind_estimation(proc)
+    net, opt = TR.make_blind_estimation(proc, device="cpu")
     net.load_state_dict(parameter_network_from_flax(variables, net), strict=True)
     net.to(torch_dtype)
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch_dtype)  # noqa: E731
@@ -258,7 +258,7 @@ def test_blind_step_matches_jax_fp32(name):
     print(f"batch stats {stats_err:.3e}")
     assert stats_err <= 1e-4
     # the port's Adam on JAX's gradients
-    ref_net, ref_opt = TR.make_blind_estimation(PROCS[name][0](SR))
+    ref_net, ref_opt = TR.make_blind_estimation(PROCS[name][0](SR), device="cpu")
     ref_net.load_state_dict(parameter_network_from_flax(variables, ref_net), strict=True)
     for k, p in ref_net.named_parameters():
         p.grad = gj[k].float()

@@ -35,6 +35,7 @@ from dasp_tpu_torch.modules import ParametricEQ
 from dasp_tpu_torch.ops import ballistics_kernel as BK
 from dasp_tpu_torch.ops import frac_delay_kernel as FK
 from dasp_tpu_torch.ops import iir_kernel as IK
+from dasp_tpu_torch.ops.biquad import biquad
 
 SR = 44100
 A_TOL = 2e-3
@@ -75,6 +76,66 @@ def test_sosfilt_kernel_matches_float64_and_plain(cuda, bs, ch, T):
     err_p = np.abs(IK.sosfilt_plain(sos, x).double().numpy() - ref).max()
     assert err_k <= A_TOL
     assert err_k <= 2 * err_p + 1e-7
+
+
+def shelf_sos(bs, gain_db=12.0):
+    """The EQ's hardest corner: a low shelf at 20 Hz with Q 6 (poles about
+    2.5e-4 from the unit circle), as one section per row."""
+    b, a = biquad(torch.full((bs,), gain_db), torch.full((bs,), 20.0), torch.full((bs,), 6.0), SR, "low_shelf")
+    return torch.cat([b, a], dim=-1)[:, None, :]
+
+
+def mild_sos(bs, S, seed):
+    """S peaking sections of +-3 dB, 100 Hz-15 kHz, Q 0.5-2 per row."""
+    rng = np.random.default_rng(seed)
+    g, fc, q = (torch.tensor(v.astype(np.float32)) for v in (
+        rng.uniform(-3, 3, (S, bs)), np.exp(rng.uniform(np.log(100), np.log(15000), (S, bs))),
+        rng.uniform(0.5, 2.0, (S, bs))))
+    secs = [torch.cat(biquad(g[i], fc[i], q[i], SR, "peaking"), dim=-1) for i in range(S)]
+    return torch.stack(secs, dim=1)
+
+
+def planes64(sos, x, reverse=False):
+    """Every section's output in float64 (S, R, T); with ``reverse`` the
+    cascade runs in flipped time and the planes are given in forward time."""
+    s64, x64 = sos.double().numpy(), x.double().numpy()
+    y = x64[:, ::-1] if reverse else x64
+    out = []
+    for i in range(s64.shape[1]):
+        y = np.stack([scipy.signal.sosfilt(s64[r, i : i + 1], y[r]) for r in range(y.shape[0])])
+        out.append(y[:, ::-1] if reverse else y)
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("R,S,T,kind", [
+    (8, 6, 131072 - 1234, "eq"),  # the EQ's width, T no multiple of the 32-sample chunk
+    (8, 6, 2 * 8192 + 1, "eq"),  # a last tile of one sample
+    (3, 6, 20, "eq"),  # T < one chunk
+    (8, 6, 1, "eq"),
+    (1, 1, 50000, "shelf"),  # R = 1, S = 1
+    (8, 1, 131072, "shelf"),
+    (24, 16, 20005, "mild"),  # R = 24, S = kMaxSections
+])
+def test_sosfilt_kernel_uses_on_edge_shapes(cuda, R, S, T, kind):
+    """All three uses of the chunked-scan kernel (forward, save-all, adjoint
+    with its reversed walk, whose last chunk is the ragged one) against
+    float64 scipy, every section, and against the plain version: within
+    A_TOL and at most 2x the plain version's error (+1e-7)."""
+    sos = {"eq": lambda: eq_sos(R, seed=T), "shelf": lambda: shelf_sos(R), "mild": lambda: mild_sos(R, S, T)}[kind]()
+    sos = IK.stabilize_sos(sos).contiguous()
+    x = torch.tensor((np.random.default_rng(T).standard_normal((R, T)) * 0.25).astype(np.float32))
+    sc, xc = sos.to(cuda), x.to(cuda)
+    ref, ref_rev = planes64(sos, x), planes64(sos, x, reverse=True)
+    uses = {
+        "forward": (IK._CudaEngine.forward(sc, xc)[None], IK._PlainEngine.forward(sos, x)[None], ref[-1:]),
+        "save_all": (IK._CudaEngine.save_all(sc, xc), IK._PlainEngine.save_all(sos, x), ref),
+        "adjoint": (IK._CudaEngine.adjoint(sc, xc), IK._PlainEngine.adjoint(sos, x), ref_rev),
+    }
+    for use, (got, plain, truth) in uses.items():
+        err_k = np.abs(got.double().cpu().numpy() - truth).max(axis=(1, 2))
+        err_p = np.abs(plain.double().numpy() - truth).max(axis=(1, 2))
+        assert (err_k <= A_TOL).all(), (use, err_k)
+        assert (err_k <= 2 * err_p + 1e-7).all(), (use, err_k, err_p)
 
 
 def test_lfilter1_kernel_matches_plain(cuda):
@@ -138,10 +199,10 @@ def one_pole_sos(bs):
     return IK.embed_first_order_sos(b, a)[:, None, :]
 
 
-@pytest.mark.parametrize("case", ["eq", "one_pole", "eq_shared_by_2_channels"])
+@pytest.mark.parametrize("case", ["eq", "one_pole", "eq_shared_by_2_channels", "shelf_20hz_q6"])
 def test_sosfilt_gradient_matches_float64_and_plain_adjoint(cuda, case):
     bs, ch, T = 8, 2 if case == "eq_shared_by_2_channels" else 1, 32768
-    sos = one_pole_sos(bs) if case == "one_pole" else eq_sos(bs, seed=4)
+    sos = {"one_pole": one_pole_sos, "shelf_20hz_q6": shelf_sos}.get(case, lambda n: eq_sos(n, seed=4))(bs)
     rng = np.random.default_rng(5)
     x = torch.tensor((rng.standard_normal((bs, ch, T)) * 0.25).astype(np.float32))
     w = torch.tensor(rng.standard_normal((bs, ch, T)).astype(np.float32))
@@ -346,7 +407,7 @@ def test_blind_estimation_step_through_kernel_c(cuda, name):
     assert counts() == before_ab
     assert bool(torch.isfinite(loss))
     assert all(not torch.equal(start[k], p) for k, p in net.named_parameters())
-    net_cpu, opt_cpu = TR.make_blind_estimation(proc)
+    net_cpu, opt_cpu = TR.make_blind_estimation(proc, device="cpu")
     net_cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
     loss_cpu, _ = TR.blind_estimation_step(net_cpu, proc, opt_cpu, x, rp)
     assert abs(float(loss) - float(loss_cpu)) <= 2e-3 * float(loss_cpu)

@@ -151,7 +151,7 @@ def jax_step():
 
 
 def torch_step(variables, x, rand, noise, dtype, torch_dtype=torch.float32):
-    net, procs, opt = TR.make_style_training(SR, smoke=True, dtype=dtype)
+    net, procs, opt = TR.make_style_training(SR, smoke=True, dtype=dtype, device="cpu")
     net.load_state_dict(style_net_from_flax(variables, net), strict=True)
     net.to(torch_dtype)
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch_dtype)  # noqa: E731
@@ -190,7 +190,7 @@ def check_step(variables, jax_out, torch_out, bounds, record_property):
         moved += int((d > 1e-6).sum())
         n += d.numel()
     # the port's Adam on JAX's gradients
-    ref_net, _, ref_opt = TR.make_style_training(SR, smoke=True, dtype=None)
+    ref_net, _, ref_opt = TR.make_style_training(SR, smoke=True, dtype=None, device="cpu")
     ref_net.load_state_dict(style_net_from_flax(variables, ref_net), strict=True)
     for k, p in ref_net.named_parameters():
         p.grad = gj[k].float()
@@ -241,3 +241,20 @@ def test_train_step_matches_jax_bf16(jax_step, record_property):
     assert all(p.dtype == torch.float32 for p in torch_out[2].parameters())
     bounds = dict(loss=2e-3, grad_diff=6e-2, grad_norm=2e-2, leaf=0.5, stats=5e-3, moved=0.05)
     check_step(variables, jax_out, torch_out, bounds, record_property)
+
+
+@pytest.mark.parametrize("entry", ["make_style_training", "make_blind_estimation"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no device named, an entry point builds on the CUDA card: where
+    there is none it raises instead of building on the CPU; the CPU runs
+    only when named."""
+    from dasp_tpu_torch import train as TR
+    from dasp_tpu_torch.modules import PitchShift
+
+    args = {"make_style_training": (SR,), "make_blind_estimation": (PitchShift(SR),)}[entry]
+    kw = {"smoke": True} if entry == "make_style_training" else {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(TR, entry)(*args, **kw)
+    net = getattr(TR, entry)(*args, device="cpu", **kw)[0]
+    assert all(p.device.type == "cpu" for p in net.parameters())
