@@ -46,8 +46,9 @@ _SIGNATURES = {
     "sosfilt_cascade_adjoint_f32": ([_P, _P, _P, _I, _I, _T, _P, _P, _P], _I),
     "sosfilt_cascade_max_sections": ([], _I),
     "sosfilt_cascade_tile": ([], _I),
-    "ballistics_f32": ([_P, _P, _P, _P, _P, _I, _T, _P], _I),
-    "ballistics_bwd_f32": ([_P] * 10 + [_I, _T, _P], _I),
+    "ballistics_f32": ([_P] * 5 + [_I, _T, _P, _P], _I),
+    "ballistics_bwd_f32": ([_P] * 10 + [_I, _T, _P, _P, _P], _I),
+    "ballistics_tile": ([], _I),
     "frac_delay_f32": ([_P] * 4 + [_I, _I, _I, _T, _I, _I, _P], _I),
     "frac_delay_bwd_f32": ([_P] * 7 + [_I, _I, _I, _T, _I, _I, _P], _I),
 }

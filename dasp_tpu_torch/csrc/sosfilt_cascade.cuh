@@ -71,6 +71,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_chain.cuh"
+
 namespace dasp {
 
 constexpr int kChunk = 32;            // samples per thread
@@ -91,20 +93,6 @@ struct Mat2 {  // [[a, b], [c, d]]
 __device__ __forceinline__ Mat2 mat_mul(const Mat2& x, const Mat2& y) {
   return {x.a * y.a + x.b * y.c, x.a * y.b + x.b * y.d,
           x.c * y.a + x.d * y.c, x.c * y.b + x.d * y.d};
-}
-
-// tile sample g lives at g + g / 32: thread t's chunk at t * 33, so a warp
-// reading sample k of 32 chunks hits 32 banks
-__device__ __forceinline__ int padded(int g) { return g + g / 32; }
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 // M^j of section (a1, a2) over kChunk samples, in float64

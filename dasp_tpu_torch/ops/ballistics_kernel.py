@@ -9,9 +9,11 @@ recursion, per row,
 
 runs in the hand-written kernel ``csrc/ballistics.cu`` for tensors on a CUDA
 device, and in :func:`ballistics_rows_plain`, a per-sample PyTorch loop,
-for tensors on the CPU. Both round every step the same way, so the kernel is
-bitwise equal to the plain loop, and chunk-chained evaluation through ``y0``
-is bitwise equal to one pass.
+for tensors on the CPU. The kernel is time-parallel: it walks 32-sample
+chunks from guessed states and walks them again from their predecessors'
+outputs until every chunk agrees bit for bit (speculate and verify); each
+step rounds as the plain loop does, so the kernel is bitwise equal to it,
+and chunk-chained evaluation through ``y0`` is bitwise equal to one pass.
 
 The gradient is the anticausal adjoint of the recursion with the branch
 pattern held fixed (as autograd through ``torch.where`` does), recomputed
@@ -22,18 +24,24 @@ from the saved output:
     dalpha[n] = lam[n] * y[n-1] - lam[n] * g[n]   -> daa or dar by branch
     dy0       = alpha[0] * lam[0]
 
-It runs in ``csrc/ballistics_bwd.cu`` on a CUDA device and in
-:func:`ballistics_bwd_rows_plain`, a reverse loop, on the CPU. Both round
-as autograd does through the plain forward (daa and dar are serial fp32
-sums from the last sample back, as autograd and the TPU kernel accumulate
-them), so kernel, loop and autograd are bitwise equal. Chunk-chained
-evaluation gives the one-pass dg and dy0 bitwise; its daa and dar sum the
-same terms in another association (one partial sum per chunk). The same
-autograd Function runs on both devices with either engine. :func:`ballistics_plain` (autograd
-through the plain loop) stays the independent reference.
+It runs in ``csrc/ballistics_bwd.cu`` on a CUDA device, a chunked scan of
+that linear recursion in float64 with each result rounded to fp32 once, and
+in :func:`ballistics_bwd_rows_plain`, a reverse loop, on the CPU. The loop
+rounds as autograd does through the plain forward (daa and dar are serial
+fp32 sums from the last sample back, as autograd and the TPU kernel
+accumulate them), so loop and autograd are bitwise equal; the kernel is
+held against the same loop run in float64 on float64 copies of its inputs
+(whose branches are the kernel's). Its daa and dar are bitwise equal from
+run to run. The same autograd Function runs on both devices with either
+engine. :func:`ballistics_plain` (autograd through the plain loop) stays
+the independent reference.
 
 Launches are counted per kernel: ``ballistics_pallas.launches`` (forward)
-and ``ballistics_pallas.bwd_launches`` (backward).
+and ``ballistics_pallas.bwd_launches`` (backward); each is one zero fill of
+the kernel's scratch and one kernel launch on the device.
+``ballistics_pallas.last_work`` holds, for the last forward launch, the
+work of its verify rounds: an (R, tiles, 3) int64 device tensor of rounds,
+passes and samples walked again per 8192-sample tile.
 
 The name ``ballistics_pallas`` is kept from the JAX package so that the
 option string ``smoother="exact_pallas"`` means the same in both packages;
@@ -116,14 +124,19 @@ class _CudaEngine:
         if R == 0 or T == 0:
             return y
         lib = _build.library()
+        ntiles = -(-T // lib.ballistics_tile())
+        # the tile counter, each tile's published last output and each
+        # tile's work (rounds, passes, samples walked again); zeroed
+        scratch = torch.zeros(1 + 4 * R * ntiles, dtype=torch.int64, device=g.device)
         with torch.cuda.device(g.device):
             stream = torch.cuda.current_stream(g.device).cuda_stream
             err = lib.ballistics_f32(
                 g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(), y.data_ptr(),
-                R, T, stream,
+                R, T, scratch.data_ptr(), stream,
             )
         _build.check(err, "ballistics_f32")
         ballistics_pallas.launches += 1
+        ballistics_pallas.last_work = scratch[1 + R * ntiles:].view(R, ntiles, 3)
         return y
 
     @staticmethod
@@ -134,12 +147,18 @@ class _CudaEngine:
         if R == 0 or T == 0:
             return dg, daa, dar, dy0
         lib = _build.library()
+        tiles = R * -(-T // lib.ballistics_tile())
+        # the chunked scan's scratch: the tile counter, per tile whether its
+        # carry is published and per row the blocks finished (zeroed); per
+        # tile the carry and the two branch sums
+        sync = torch.zeros(1 + tiles + R, dtype=torch.int32, device=g.device)
+        states = torch.empty(3 * tiles, dtype=torch.float64, device=g.device)
         with torch.cuda.device(g.device):
             stream = torch.cuda.current_stream(g.device).cuda_stream
             err = lib.ballistics_bwd_f32(
                 y.data_ptr(), g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(),
                 ct.data_ptr(), dg.data_ptr(), daa.data_ptr(), dar.data_ptr(), dy0.data_ptr(),
-                R, T, stream,
+                R, T, sync.data_ptr(), states.data_ptr(), stream,
             )
         _build.check(err, "ballistics_bwd_f32")
         ballistics_pallas.bwd_launches += 1
@@ -241,3 +260,5 @@ def ballistics_pallas(g, alpha_attack, alpha_release, y0=None, return_yf=False):
 # kernel launches by kernel, counted in _CudaEngine
 ballistics_pallas.launches = 0
 ballistics_pallas.bwd_launches = 0
+# the last forward launch's rounds, passes and samples walked again per tile
+ballistics_pallas.last_work = None

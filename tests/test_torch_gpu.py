@@ -15,8 +15,11 @@ of the plain fp32 adjoint plus 2e-4 of that largest gradient: on rows of
 the closer (measured on an H100: kernel 6.6e-5, plain 2.5e-5 for dsos),
 while at the path's 131072 samples the plain version's block carries
 dominate (chip_smoke.py phase 5 holds the strict 2x rule there: kernel
-1.2e-4, plain 1.7e-2); the ballistics kernels bitwise equal to their
-plain loops; a smoke-width training step through all kernel uses within
+1.2e-4, plain 1.7e-2); the ballistics forward bitwise equal to its plain
+loop, and its backward (a float64 scan) against the plain reverse loop run
+in float64, within B_BWD_TOL of each gradient's scale and at most 2x the
+fp32 loop's own distance plus B_BWD_TOL (b_bwd_errors); a smoke-width
+training step through all kernel uses within
 1e-3 (loss) and 1e-2 (gradient norm) of the plain path. The
 fractional-delay kernels (C-fwd, C-bwd) against their plain engine on the
 same card tensors: the forward, dd and dg bitwise equal (the same fp32
@@ -227,20 +230,123 @@ def test_sosfilt_gradient_matches_float64_and_plain_adjoint(cuda, case):
         assert err_k <= 2 * err_p + 2e-4 * float(t.abs().max())
 
 
+def b_bwd_errors(got, y, g, aa, ar, y0, ct):
+    """The ballistics backward's (dg, daa, dar, dy0) against the plain
+    reverse loop in float64 on float64 copies of the same fp32 inputs (so its
+    branches are the kernel's): per gradient, the distance of ``got`` and of
+    the plain fp32 loop, relative to the largest float64 value (dg, dy0) or
+    to the sum of |terms| of the branch (daa, dar)."""
+    y, g, aa, ar, y0, ct = (t.cpu() for t in (y, g, aa, ar, y0, ct))
+    ref = BK.ballistics_bwd_rows_plain(*(t.double() for t in (y, g, aa, ar, y0, ct)))
+    plain = BK.ballistics_bwd_rows_plain(y, g, aa, ar, y0, ct)
+    y_prev = torch.cat([y0[:, None], y[:, :-1]], dim=1).double()
+    attack = g.double() < y_prev
+    alpha = torch.where(attack, aa[:, None], ar[:, None]).double()
+    terms = (ref[0] / (1.0 - alpha) * (y_prev - g.double())).abs()
+    scale = [ref[0].abs().max(), (terms * attack).sum(-1), (terms * ~attack).sum(-1), ref[3].abs().max()]
+    out = {}
+    for i, name in enumerate(("dg", "daa", "dar", "dy0")):
+        s = torch.clamp(scale[i], min=1e-300)  # a branch never taken sums nothing, exactly
+        dist = [float(((v[i].cpu().double() - ref[i]).abs() / s).max()) for v in (got, plain)]
+        out[name] = tuple(dist)
+    return out
+
+
+# the ballistics backward against float64 (b_bwd_errors): within B_BWD_TOL,
+# and at most 2x the plain fp32 loop's distance plus B_BWD_TOL. The kernel
+# rounds each float64 result to fp32 once (at most 6e-8 of it); the plain
+# fp32 loop sits 1e-7 to 2.2e-6 from float64 at these shapes
+B_BWD_TOL = 2e-7
+
+
+def assert_b_bwd(errors):
+    for name, (k, p) in errors.items():
+        assert k <= B_BWD_TOL and k <= 2 * p + B_BWD_TOL, (name, k, p)
+
+
 @pytest.mark.parametrize("with_y0", [False, True])
 def test_ballistics_backward_bitwise_plain(cuda, with_y0):
+    """B-bwd through autograd: one launch of each kernel, and the gradient
+    held to float64 (b_bwd_errors). The kernel was bitwise equal to the fp32
+    reverse loop while it walked each row serially in fp32; its time-parallel
+    form scans in float64 and rounds each result once, so it is held against
+    the same loop run in float64 instead, within B_BWD_TOL and at most twice
+    the fp32 loop's own distance from it plus B_BWD_TOL. The forward stays
+    bitwise."""
     g = make_g(8, 5000)
     aa, ar = torch.linspace(0.5, 0.95, 8), torch.linspace(0.9, 0.999, 8)
     y0 = -torch.rand(8, 1) if with_y0 else torch.zeros(8, 1)
     ct = torch.randn(8, 1, 5000)
     leaves = [t.detach().to(cuda).requires_grad_() for t in (g, aa, ar, y0)]
     before = counts()
-    (BK.ballistics_pallas(*leaves[:3], y0=leaves[3]) * ct.to(cuda)).sum().backward()
+    y = BK.ballistics_pallas(*leaves[:3], y0=leaves[3])
+    (y * ct.to(cuda)).sum().backward()
     assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, 1, 1)
-    y = BK.ballistics_rows_plain(g.reshape(8, 5000), aa, ar, y0.reshape(8))
-    ref = BK.ballistics_bwd_rows_plain(y, g.reshape(8, 5000), aa, ar, y0.reshape(8), ct.reshape(8, 5000))
-    for leaf, r in zip(leaves, ref):
-        assert torch.equal(leaf.grad.cpu(), r.reshape(leaf.shape))
+    rows = (g.reshape(8, 5000), aa, ar, y0.reshape(8))
+    assert torch.equal(y.detach().cpu().reshape(8, 5000), BK.ballistics_rows_plain(*rows))
+    got = [leaf.grad.reshape(-1, 5000) if i == 0 else leaf.grad.reshape(-1) for i, leaf in enumerate(leaves)]
+    assert_b_bwd(b_bwd_errors(got, y.detach().reshape(8, 5000), *rows, ct.reshape(8, 5000)))
+
+
+def alpha_ms(ms):
+    return torch.exp(-torch.log(torch.tensor(9.0)) / (SR * torch.as_tensor(ms, dtype=torch.float32) / 1e3))
+
+
+def compressor_curve(R, T, seed):
+    """A compressor's gain curve (dB) on 0.25 * randn: threshold -20 dB,
+    ratio 4, knee 6 dB."""
+    x = torch.tensor((np.random.default_rng(seed).standard_normal((R, T)) * 0.25).astype(np.float32))
+    x_db = 20.0 * torch.log10(torch.clamp(x.abs(), min=1e-8))
+    return F.static_gain_computer(x_db, -20.0, 4.0, 6.0, "compressor")
+
+
+def ballistics_rows(case, R, T):
+    """(g, aa, ar, y0) of (R, T) rows: a compressor curve with attack and
+    release drawn from the Compressor's 5-100 ms per row ("curve", and with
+    a drawn y0 "y0"), or at the 100 / 100 and 5 / 100 ms corners."""
+    rng = np.random.default_rng(R * T)
+    g = compressor_curve(R, T, seed=T)
+    ms = {"corner_100_100": (100.0, 100.0), "corner_5_100": (5.0, 100.0)}.get(case)
+    a_ms, r_ms = (torch.full((R,), v) for v in ms) if ms else (
+        torch.tensor(rng.uniform(5.0, 100.0, (2, R)).astype(np.float32)))
+    y0 = torch.tensor(-rng.uniform(0.0, 12.0, R).astype(np.float32)) if case == "y0" else torch.zeros(R)
+    return g, alpha_ms(a_ms), alpha_ms(r_ms), y0
+
+
+@pytest.mark.parametrize("R,T,case", [
+    (1, 1, "curve"),
+    (3, 31, "y0"),  # T < one chunk
+    (24, 8191, "curve"),  # one tile short of a sample; R = 24
+    (8, 8193, "corner_100_100"),  # a last tile of one sample
+    (1, 50000, "corner_5_100"),  # R = 1, ragged
+    (8, 20000, "y0"),
+    (2, 262144, "corner_100_100"),  # the corruption's length
+])
+def test_ballistics_kernels_on_edge_shapes(cuda, R, T, case):
+    """B-fwd bitwise equal to the plain loop and B-bwd held to float64
+    (b_bwd_errors), one launch each, on edge shapes and at the corners."""
+    g, aa, ar, y0 = ballistics_rows(case, R, T)
+    ct = torch.tensor(np.random.default_rng(T).standard_normal((R, T)).astype(np.float32))
+    gc, ac, rc, y0c, ctc = (t.to(cuda) for t in (g, aa, ar, y0, ct))
+    before = counts()
+    y = BK._CudaEngine.forward(gc, ac, rc, y0c)
+    got = BK._CudaEngine.backward(y, gc, ac, rc, y0c, ctc)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, 1, 1)
+    assert torch.equal(y.cpu(), BK.ballistics_rows_plain(g, aa, ar, y0))
+    assert_b_bwd(b_bwd_errors(got, y, g, aa, ar, y0, ct))
+
+
+def test_ballistics_backward_is_reproducible(cuda):
+    """daa and dar are summed per tile and then over tiles in a fixed order,
+    with no float atomics: bitwise equal from run to run (as dg and dy0)."""
+    g, aa, ar, y0 = (t.to(cuda) for t in ballistics_rows("y0", 8, 131072))
+    ct = torch.randn(8, 131072, device=cuda)
+    y = BK._CudaEngine.forward(g, aa, ar, y0)
+    runs = [BK._CudaEngine.backward(y, g, aa, ar, y0, ct) for _ in range(3)]
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[0], runs[2]):
+        assert torch.equal(a, b)
 
 
 def test_training_step_through_all_kernel_uses(cuda):

@@ -13,11 +13,16 @@ interpret mode. Tolerances:
 * ballistics: 1e-6 relative to the curve's peak. XLA:CPU contracts the
   update into FMAs, so the JAX reference rounds a few ulps away from the
   per-step IEEE rounding of the plain loop (which the CUDA kernel copies
-  bitwise); the test reports whether the two are bitwise equal.
+  bitwise); the test reports whether the two are bitwise equal;
+* the ballistics kernels' algorithms, emulated in PyTorch: the forward's
+  speculate-and-verify rounds bitwise equal to the plain loop, the
+  backward's float64 chunked scan within 1e-12 of the float64 reverse loop.
 
 The CUDA kernels themselves are tested on the card by
 tests/test_torch_gpu.py.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -264,6 +269,182 @@ def test_ballistics_gradients_match_jax():
     (BK.ballistics_pallas(*ts) ** 2).mean().backward()
     for t_, gj in zip(ts, grads_j):
         np.testing.assert_allclose(t_.grad.numpy(), np.asarray(gj), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the two CUDA ballistics algorithms, emulated (CPU)
+# ---------------------------------------------------------------------------
+
+
+def alpha_ms(ms):
+    """The smoothing coefficient of a time constant (functional._dynamics_common)."""
+    return torch.exp(torch.tensor(-math.log(9.0) / (SR * ms / 1e3), dtype=torch.float32))
+
+
+def bits(t):
+    return t.view(torch.int32)
+
+
+def speculate_and_verify(g, aa, ar, y0, guess="g", L=32):
+    """csrc/ballistics.cu's rounds in PyTorch fp32, vectorised over the
+    L-sample chunks of (R, T) rows: every chunk walks from a guessed entering
+    state (``guess``: the sample of g before it, zero, or noise; y0 for the
+    row's first chunk), then in rounds every chunk whose entering state
+    differs bit for bit from its predecessor's last output walks again from
+    it, until no chunk changes. Returns (y, rounds)."""
+    R, T = g.shape
+    C = -(-T // L)
+    gc = torch.nn.functional.pad(g, (0, C * L - T)).reshape(R, C, L)
+    aa, ar = aa[:, None], ar[:, None]
+
+    def walk(e):
+        v, out = e, []
+        for k in range(L):
+            alpha = torch.where(gc[..., k] < v, aa, ar)
+            v = (1.0 - alpha) * gc[..., k] + alpha * v
+            out.append(v)
+        return torch.stack(out, dim=-1)
+
+    e = {"g": torch.nn.functional.pad(gc[:, :-1, -1], (1, 0)), "zero": torch.zeros(R, C),
+         "noise": torch.randn(R, C, generator=torch.Generator().manual_seed(0))}[guess]
+    e[:, 0] = y0
+    y, rounds = walk(e), 0
+    while True:
+        pred = torch.cat([y0[:, None], y[:, :-1, -1]], dim=1)
+        changed = bits(pred) != bits(e)
+        if not changed.any():
+            return y.reshape(R, -1)[:, :T], rounds
+        e = torch.where(changed, pred, e)
+        y = torch.where(changed[..., None], walk(e), y)
+        rounds += 1
+
+
+def compressor_curve(R, T, seed):
+    """A compressor's gain curve (dB) on 0.25 * randn: threshold -20 dB,
+    ratio 4, knee 6 dB."""
+    from dasp_tpu_torch import functional as F
+
+    x = torch.tensor((np.random.default_rng(seed).standard_normal((R, T)) * 0.25).astype(np.float32))
+    x_db = 20.0 * torch.log10(torch.clamp(x.abs(), min=1e-8))
+    return F.static_gain_computer(x_db, -20.0, 4.0, 6.0, "compressor")
+
+
+def with_ties(g, aa, ar, y0, every=7):
+    """g with g[n] set to y[n-1] of the plain loop on every ``every``-th
+    sample, so the branch compares equal values there."""
+    g = g.clone()
+    y_prev = y0
+    for n in range(g.shape[-1]):
+        if n % every == 3:
+            g[:, n] = y_prev
+        alpha = torch.where(g[:, n] < y_prev, aa, ar)
+        y_prev = (1.0 - alpha) * g[:, n] + alpha * y_prev
+    return g
+
+
+def ballistics_case(name, R=2):
+    """(g, aa, ar, y0) of (R, T) rows for the named case."""
+    T = {"short": 20, "ragged": 1000}.get(name, 4096)
+    g = compressor_curve(R, T, seed=T)
+    a5, a100 = alpha_ms(5.0), alpha_ms(100.0)
+    aa, ar, y0 = torch.full((R,), float(a5)), torch.full((R,), float(a100)), torch.zeros(R)
+    if name == "corner_100_100":
+        aa = ar
+    elif name == "constant":
+        g = torch.full((R, T), -6.0)
+    elif name == "step":
+        g = torch.zeros(R, T)
+        g[:, T // 3 : 2 * T // 3] = -12.0
+    elif name == "ties":
+        g = with_ties(g, aa, ar, y0)
+    elif name == "y0":
+        y0 = -torch.rand(R, generator=torch.Generator().manual_seed(1)) * 12.0
+    return g, aa, ar, y0
+
+
+@pytest.mark.parametrize("name", ["corner_100_100", "constant", "step", "ties", "y0", "short", "ragged"])
+def test_speculate_and_verify_is_bitwise_the_plain_loop(name):
+    """The forward kernel's algorithm reaches the plain loop's result bit for
+    bit; at the 100 / 100 ms corner its speculation alone is wrong, so the
+    rounds are what make it exact."""
+    g, aa, ar, y0 = ballistics_case(name)
+    y, rounds = speculate_and_verify(g, aa, ar, y0)
+    plain = BK.ballistics_rows_plain(g, aa, ar, y0)
+    assert torch.equal(bits(y), bits(plain))
+    if name == "ties":
+        y_prev = torch.cat([y0[:, None], plain[:, :-1]], dim=1)
+        assert int((g == y_prev).sum()) >= g.numel() // 8
+    if name == "corner_100_100":
+        assert rounds > 10
+
+
+@pytest.mark.parametrize("guess", ["zero", "noise"])
+def test_speculate_and_verify_does_not_depend_on_the_guess(guess):
+    g, aa, ar, y0 = ballistics_case("corner_100_100")
+    y, _ = speculate_and_verify(g, aa, ar, y0, guess=guess)
+    assert torch.equal(bits(y), bits(BK.ballistics_rows_plain(g, aa, ar, y0)))
+
+
+def chunked_adjoint64(y, g, aa, ar, y0, ct, L=32, warp=32, warps=8):
+    """csrc/ballistics_bwd.cu's algebra in float64: in reverse time,
+    q -> P q + z over each L-sample chunk (a zero-state walk), the maps
+    scanned over a warp's chunks by doubling with (P', z') after (P, z) =
+    (P' P, P' z + z'), chained over warps and tiles, and each chunk walked
+    again from its true q, writing dg and summing the terms by branch."""
+    R, T = g.shape
+    tile = L * warp * warps
+    Tp = -(-T // tile) * tile
+    rev = lambda v: torch.nn.functional.pad(v.flip(-1), (0, Tp - T)).reshape(R, -1, L)  # noqa: E731
+    y_prev = torch.cat([y0[:, None], y[:, :-1]], dim=1)
+    gr, cr, yr = rev(g), rev(ct), rev(y_prev)
+    attack = gr < yr
+    a = torch.where(attack, aa[:, None, None], ar[:, None, None])
+
+    P, z = torch.ones_like(gr[..., 0]), torch.zeros_like(gr[..., 0])
+    for k in range(L):
+        z = a[..., k] * (cr[..., k] + z)
+        P = P * a[..., k]
+    P, z = P.reshape(R, -1, warp), z.reshape(R, -1, warp)
+    for d in (1, 2, 4, 8, 16):
+        pP = torch.nn.functional.pad(P, (d, 0), value=1.0)[..., :warp]
+        pz = torch.nn.functional.pad(z, (d, 0))[..., :warp]
+        P, z = P * pP, z + P * pz
+    c, starts = torch.zeros(R, dtype=g.dtype), []
+    for w in range(P.shape[1]):  # warps of every tile, in order
+        starts.append(c)
+        c = P[:, w, -1] * c + z[:, w, -1]
+    xP = torch.nn.functional.pad(P, (1, 0), value=1.0)[..., :warp]
+    xz = torch.nn.functional.pad(z, (1, 0))[..., :warp]
+    q = (xP * torch.stack(starts, dim=1)[..., None] + xz).reshape(R, -1)
+
+    dg, sums = [], torch.zeros(R, 2, dtype=g.dtype)
+    for k in range(L):
+        lam = cr[..., k] + q
+        dg.append((1.0 - a[..., k]) * lam)
+        term = lam * (yr[..., k] - gr[..., k])
+        sums[:, 0] += torch.where(attack[..., k], term, 0.0).sum(-1)
+        sums[:, 1] += torch.where(attack[..., k], 0.0, term).sum(-1)
+        q = a[..., k] * lam
+        if k == (T - 1) % L:
+            dy0 = q[:, (T - 1) // L]
+    dg = torch.stack(dg, dim=-1).reshape(R, -1)[:, :T].flip(-1)
+    return dg, sums[:, 0], sums[:, 1], dy0
+
+
+@pytest.mark.parametrize("T", [20, 1000, 2 * 8192 + 777])
+def test_chunked_adjoint_algebra_matches_the_float64_loop(T):
+    """The backward kernel's reverse chunked scan reproduces the plain reverse
+    loop in float64, over tiles and a ragged last one, within 1e-12 of each
+    gradient's largest value (a wrong carry is off by the gradient itself)."""
+    R = 2
+    g, aa, ar, y0 = (v.double() for v in ballistics_case("y0", R=R))
+    g = compressor_curve(R, T, seed=T).double()
+    y = BK.ballistics_rows_plain(g, aa, ar, y0)
+    ct = torch.tensor(np.random.default_rng(T).standard_normal((R, T)))
+    got = chunked_adjoint64(y, g, aa, ar, y0, ct)
+    ref = BK.ballistics_bwd_rows_plain(y, g, aa, ar, y0, ct)
+    for name, a, b in zip(("dg", "daa", "dar", "dy0"), got, ref):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max()), name
 
 
 # ---------------------------------------------------------------------------
