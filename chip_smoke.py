@@ -45,12 +45,14 @@ of the pitch shifter and chorus at full width:
            (two wrapping taps, 60 ms window, B 256) and an LFO modulated
            delay (22 ms bound, B 512): against a float64 two-point
            reference, bitwise against its plain engine, against the dense
-           plain version; ms of each, and of the whole effects' forward and
-           gradient on the kernel and on the dense path
+           plain version; ms a call and of the kernel alone, and of the
+           whole effects' forward and gradient on the kernel and on the
+           dense path
   phase 9  its backward (C-bwd) at the same shapes: dx, dd, dg against
            float64, the plain engine and the dense version's autograd; dd
-           and dg bitwise from run to run; the reference kernel's fault case
-           (a ramp with dr/dt = 20, wraps=False) against float64
+           and dg bitwise from run to run; dx's global atomics; ms a call
+           and alone, with and without dx; the reference kernel's fault
+           case (a ramp with dr/dt = 20, wraps=False) against float64
   phase 10 the blind-estimation slice: the 198,354-parameter
            ParameterNetwork preset with PitchShift at bs 8 on 131072-sample
            mono clips: 1 warm-up and 3 timed steps (target render, forward
@@ -59,6 +61,13 @@ of the pitch shifter and chorus at full width:
            the effect's gradient with respect to a fixed p_hat three ways
            (kernel fp32, dense plain fp32, dense float64) held to bounds,
            and the net's gradients the same three ways, printed
+  phase 11 the "fsm" defaults: ParametricEQ(SR) and Compressor(SR) with no
+           option given (frequency sampling on cuFFT) at 8 x 2 x 131072,
+           output and the gradient of mean(y ** 2) with respect to the
+           normalized parameters against the same in float64 on the card:
+           the compressor within 1e-4 of max(1, peak); the EQ's FIR
+           application on a fixed response within it, its whole distance
+           printed beside the CPU's (see phase_fsm); ms of each
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -68,7 +77,8 @@ functions, so ``library_ms`` is null), then as its last line
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 ``python3 chip_smoke.py --time-ballistics-of DIR`` only times kernel B's two
-launches of the package in the checkout DIR (see :func:`time_ballistics`).
+launches of the package in the checkout DIR (see :func:`time_ballistics`),
+``--time-frac-delay-of DIR`` kernel C's (see :func:`time_frac_delay`).
 """
 
 from __future__ import annotations
@@ -130,6 +140,9 @@ C_BWD_FLOOR = 1e-6
 C_BWD_DX_ENGINE_TOL = 1e-6
 # the reference kernel's fault case: relative to the float64 peak
 RAMP_TOL = 1e-5
+# the "fsm" defaults in fp32 against float64 on the card, of max(1, peak)
+# (tests/test_parity.py's bar for the reference's fixtures)
+FSM_TOL = 1e-4
 BLIND_PARAMS = {"PitchShift": 198_354, "Chorus": 198_612}
 BLIND_STATS = 1_472
 # launches per blind-estimation step: C-fwd in the target render and the
@@ -237,11 +250,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms_by_kernel(fn, kernels, reps: int) -> dict:
+def device_ms_by_kernel(fn, kernels, reps: int, per_launch: bool = False) -> dict:
     """Device time per call of ``fn``, from a CUDA-only torch.profiler trace
     of ``reps`` calls after a warm-up: of the CUDA kernels whose name holds
-    each of ``kernels``, and of all device work ("all"); None where the
-    trace shows none."""
+    each of ``kernels`` (with ``per_launch``, per launch the trace recorded
+    instead), and of all device work ("all"); None where the trace shows
+    none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -254,15 +268,20 @@ def device_ms_by_kernel(fn, kernels, reps: int) -> dict:
     events = prof.key_averages()
     out = {}
     for name in (*kernels, "all"):
-        us = sum(getattr(e, "device_time_total", 0) for e in events if name == "all" or name in e.key)
-        out[name] = us / reps / 1e3 if us > 0 else None
+        hits = [e for e in events if name == "all" or name in e.key]
+        us = sum(getattr(e, "device_time_total", 0) for e in hits)
+        n = sum(e.count for e in hits) if per_launch and name != "all" else reps
+        out[name] = us / n / 1e3 if us > 0 else None
+        if per_launch and name != "all" and n != reps:
+            print(f"[profiler] recorded {n} launches of {name} in {reps} calls")
     return out
 
 
 def kernel_device_ms(fn, kernel: str, reps: int):
-    """Device time per call of ``fn`` of the CUDA kernels whose name holds
-    ``kernel`` (see :func:`device_ms_by_kernel`)."""
-    return device_ms_by_kernel(fn, (kernel,), reps)[kernel]
+    """Device time of one launch of the CUDA kernel whose name holds
+    ``kernel`` (``fn`` launches it once a call), the mean over the launches
+    the trace recorded (see :func:`device_ms_by_kernel`)."""
+    return device_ms_by_kernel(fn, (kernel,), reps, per_launch=True)[kernel]
 
 
 def fmt_ms(v) -> str:
@@ -980,23 +999,27 @@ def phase_frac_delay_fwd(configs, device, card):
             err = {k: float((v.double() - ref).abs().max()) for k, v in
                    (("kernel", wet_k), ("engine", wet_e), ("dense", wet_d))}
             bitwise = torch.equal(wet_k, wet_e)
-            ms = cuda_ms(lambda: FK.frac_delay_pallas(x_ext, d, g, B, Dm), 50)
+            call = lambda: FK.frac_delay_pallas(x_ext, d, g, B, Dm)  # noqa: E731
+            ms = cuda_ms(call, 50)
+            dev_ms = kernel_device_ms(call, "frac_delay_kernel", 50)
             ms_e = cuda_ms(lambda: FK.frac_delay_plain(x_ext, d, g, B, Dm), 10)
             ms_d = cuda_ms(lambda: F._frac_delay_tiles_ad(B, Dm, x_ext, d, g), 2)
-            print(f"[C-fwd {name}] taps {d.shape[0]}, B {B}, Dm {Dm} | vs float64: kernel {err['kernel']:.3e}, "
-                  f"plain engine {err['engine']:.3e}, dense {err['dense']:.3e} (peak {float(ref.abs().max()):.3f}) | "
-                  f"kernel == plain engine bitwise: {bitwise} | kernel {ms:.4f} ms, plain engine {ms_e:.4f} ms, "
-                  f"dense {ms_d:.3f} ms | {card}")
-            require(bitwise, f"C-fwd {name}: kernel differs from its plain engine")
-            require(bool(torch.isfinite(wet_k).all()), f"C-fwd {name}: non-finite output")
-            require(err["kernel"] <= 2 * err["dense"] + C_FWD_FLOOR,
-                    f"C-fwd {name}: error {err['kernel']:.3e} > 2 x dense {err['dense']:.3e} + {C_FWD_FLOOR}")
             # x_ext, delays and gains read, wet written; per tap and output
             # sample about 10 operations (read position, two weights, two
             # multiply-adds, the gain)
             nbytes = 4 * (x_ext.numel() + d.numel() + g.numel() + wet_k.numel())
-            results[name] = {"err": err["kernel"], "ms": ms, "plain_ms": ms_e, "dense_ms": ms_d,
-                             **bound(nbytes, 10 * d.shape[0] * wet_k.numel())}
+            b = bound(nbytes, 10 * d.shape[0] * wet_k.numel())
+            print(f"[C-fwd {name}] taps {d.shape[0]}, B {B}, Dm {Dm} | vs float64: kernel {err['kernel']:.3e}, "
+                  f"plain engine {err['engine']:.3e}, dense {err['dense']:.3e} (peak {float(ref.abs().max()):.3f}) | "
+                  f"kernel == plain engine bitwise: {bitwise} | kernel {ms:.4f} ms a call (alone {fmt_ms(dev_ms)}; "
+                  f"bound {b['bound_ms']:.5f} ms by {b['bound_by']}), plain engine {ms_e:.4f} ms, dense {ms_d:.3f} ms "
+                  f"| {card}")
+            require(bitwise, f"C-fwd {name}: kernel differs from its plain engine")
+            require(bool(torch.isfinite(wet_k).all()), f"C-fwd {name}: non-finite output")
+            require(err["kernel"] <= 2 * err["dense"] + C_FWD_FLOOR,
+                    f"C-fwd {name}: error {err['kernel']:.3e} > 2 x dense {err['dense']:.3e} + {C_FWD_FLOOR}")
+            results[name] = {"err": err["kernel"], "ms": ms, "device_ms": dev_ms, "plain_ms": ms_e, "dense_ms": ms_d,
+                             **b}
 
     # the whole effects at fdt_ab scale: forward, and the gradient of
     # mean(y ** 2) with respect to the audio and every parameter
@@ -1088,20 +1111,30 @@ def phase_frac_delay_bwd(configs, device, card):
         _, dd_e, dg_e = FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm, need_dx=False)
         res_nodx = max(float((a - b).abs().max()) for a, b in ((dd_k, dd_e), (dg_k, dg_e)))
         require(res_nodx == 0, f"C-bwd {name}: without dx, dd/dg differ from the plain engine by {res_nodx:.3e}")
-        ms = cuda_ms(lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm), 50)
-        ms_nodx = cuda_ms(lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm, need_dx=False), 50)
+        # dx's global atomics: one per valid lattice point, tap and channel
+        _, _, _, _, valid0, valid1 = FK._coords(d, B, Dm)
+        atomics = int(valid0.sum() + valid1.sum()) * x_ext.shape[1]
+        with_dx = lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm)  # noqa: E731
+        no_dx = lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm, need_dx=False)  # noqa: E731
+        ms, ms_nodx = cuda_ms(with_dx, 50), cuda_ms(no_dx, 50)
+        dev = kernel_device_ms(with_dx, "frac_delay_bwd_dx_kernel", 50)
+        dev_nodx = kernel_device_ms(no_dx, "frac_delay_bwd_kernel", 50)
         ms_e = cuda_ms(lambda: FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm), 10)
         ms_e_nodx = cuda_ms(lambda: FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm, need_dx=False), 10)
         ms_d = cuda_ms(lambda: autograd(lambda *a: F._frac_delay_tiles_ad(B, Dm, *a)), 2)
         print(f"[C-bwd {name}] vs float64, of each largest value ({kinks} kinks): " + " | ".join(line))
-        print(f"[C-bwd {name}] without dx: dd, dg vs plain engine {res_nodx:.3e} abs | kernel {ms:.4f} ms with dx, "
-              f"{ms_nodx:.4f} ms without | plain engine {ms_e:.4f} ms with dx, {ms_e_nodx:.4f} ms without | "
-              f"dense forward + autograd {ms_d:.3f} ms | {card}")
         # without dx: x_ext, delays, gains and the cotangent read, dd and dg
-        # written; about 12 operations per tap and output sample
+        # written; about 12 operations per tap and output sample; with dx,
+        # dx written too and 4 more operations
         nbytes = 4 * (x_ext.numel() + d.numel() + g.numel() + ct.numel() + dd_k.numel() + dg_k.numel())
-        results[name] = {"err": res_nodx, "ms": ms_nodx, "plain_ms": ms_e_nodx,
-                         **bound(nbytes, 12 * d.shape[0] * ct.numel())}
+        b_nodx = bound(nbytes, 12 * d.shape[0] * ct.numel())
+        b_dx = bound(nbytes + 4 * x_ext.numel(), 16 * d.shape[0] * ct.numel())
+        print(f"[C-bwd {name}] without dx: dd, dg vs plain engine {res_nodx:.3e} abs | kernel with dx ({atomics} "
+              f"global atomics) {ms:.4f} ms a call (alone {fmt_ms(dev)}; bound {b_dx['bound_ms']:.5f} ms by "
+              f"{b_dx['bound_by']}), without {ms_nodx:.4f} ms a call (alone {fmt_ms(dev_nodx)}; bound "
+              f"{b_nodx['bound_ms']:.5f} ms by {b_nodx['bound_by']}) | plain engine {ms_e:.4f} ms with dx, "
+              f"{ms_e_nodx:.4f} ms without | dense forward + autograd {ms_d:.3f} ms | {card}")
+        results[name] = {"err": res_nodx, "ms": ms_nodx, "device_ms": dev_nodx, "plain_ms": ms_e_nodx, **b_nodx}
 
     # the reference kernel's fault: a ramp with dr/dt = 20, smooth within
     # each tile, on a quarter-sample grid (exact fp32 read positions)
@@ -1280,12 +1313,120 @@ def phase_blind(seed, device, card):
     return launches
 
 
+def phase_fsm(rng, device, card):
+    """The "fsm" defaults on the card: ParametricEQ(SR) and Compressor(SR)
+    with no option given, output and the gradient of mean(y ** 2) with
+    respect to the normalized parameters, fp32 against float64.
+
+    The compressor is held to FSM_TOL whole. The EQ's whole distance is
+    printed beside the same fp32 function's on CPU copies (the reference's
+    algorithm with another FFT library), and held to FSM_TOL where the
+    rounding is the card's own: the FIR application of a fixed response H
+    (the FFTs of the signal) and its gradient with respect to the signal.
+    The EQ's response H = prod(rfft(b) / rfft(a)) over 262144 points, which
+    the JAX package forms the same way, is ill-conditioned in fp32 near its
+    resonances (a 20 Hz shelf's poles lie about 2.5e-4 from the unit
+    circle): its fp32 error is printed beside the rest."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch.modules import Compressor, ParametricEQ
+    from dasp_tpu_torch.ops import fft_filter as FF
+
+    def rel(a, b):
+        return float((a.to(b.dtype) - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    x = torch.tensor((rng.standard_normal((BS, 2, T)) * 0.25).astype(np.float32), device=device)
+    for proc in (ParametricEQ(SR), Compressor(SR)):
+        name = type(proc).__name__
+        p = torch.tensor(rng.uniform(0.05, 0.95, (BS, proc.num_params)).astype(np.float32), device=device)
+
+        def run(dtype, dev=device):
+            q = p.to(dev, dtype, copy=True).requires_grad_()
+            y = proc.process_normalized(x.to(dev, dtype), q, clip_params=True)
+            (y ** 2).mean().backward()
+            return y.detach(), q.grad
+
+        reset_launch_counts()
+        y32, g32 = run(torch.float32)
+        torch.cuda.synchronize()
+        used = {k: v for k, v in launch_counts().items() if v}
+        y64, g64 = run(torch.float64)
+        err = {"output": rel(y32, y64), "gradient": rel(g32, g64)}
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: proc.process_normalized(x, p, clip_params=True), 10)
+        grad_ms = cuda_ms(lambda: run(torch.float32), 10)
+        line = (f"[fsm {name}] default options, {BS}x2x{T}: fp32 vs float64 on the card, of max(1, peak): output "
+                f"{err['output']:.3e}, gradient of mean(y ** 2) w.r.t. the normalized parameters "
+                f"{err['gradient']:.3e}")
+        require(not used, f"fsm {name}: the FSM path launched {used}")
+        require(bool(torch.isfinite(y32).all()) and bool(torch.isfinite(g32).all()), f"fsm {name}: non-finite")
+        gated = err
+        if isinstance(proc, ParametricEQ):
+            y_cpu, g_cpu = run(torch.float32, "cpu")
+            d = proc.denormalize_param_dict(proc.extract_param_dict(p))
+            sos = F.parametric_eq_sos(BS, torch.float32, SR, *d.values(), device=device)
+            n = FF.fsm_fft_size(T)
+            H = FF.fft_sosfreqz(sos, n)
+
+            def fir(dtype):
+                xx = x.to(dtype, copy=True).requires_grad_()
+                y = FF.freqdomain_fir(xx, H[:, None, :].to(xx.dtype.to_complex()), n)[..., :T]
+                (y ** 2).sum().backward()  # a gradient of the signal's scale
+                return y.detach(), xx.grad
+
+            (f32, dx32), (f64, dx64) = fir(torch.float32), fir(torch.float64)
+            gated = {"FIR output": rel(f32, f64), "FIR gradient w.r.t. x": rel(dx32, dx64)}
+            line += (f" (printed only; the same fp32 function on CPU copies: output {rel(y_cpu, y64.cpu()):.3e}, "
+                     f"gradient {rel(g_cpu, g64.cpu()):.3e}; H in fp32 vs float64 of the same coefficients "
+                     f"{rel(H, FF.fft_sosfreqz(sos.double(), n)):.3e} of its peak) | on a fixed H: FIR output "
+                     f"{gated['FIR output']:.3e}, the gradient of sum(y ** 2) w.r.t. x {gated['FIR gradient w.r.t. x']:.3e}")
+        print(line + f" (bound {FSM_TOL}) | forward {fwd_ms:.3f} ms, forward + gradient {grad_ms:.3f} ms | kernels "
+              f"launched {used} | {card}")
+        for what, e in gated.items():
+            require(e <= FSM_TOL, f"fsm {name}: {what} {e:.3e} of max(1, peak) from float64 > {FSM_TOL}")
+
+
+def time_frac_delay(tree, seed, device, card):
+    """C-fwd and C-bwd (without and with dx) of the package imported from
+    ``tree`` on phases 8-9's operands made from ``seed``: a call by CUDA
+    events, and the kernel alone (profiler) with its data in L2 and after a
+    256 MB write has evicted it. Prints one JSON line. Run two trees in
+    turns in one chip call (parent, change, change, parent)."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch.ops import frac_delay_kernel as FK
+
+    rng = np.random.default_rng(seed)
+    flush = torch.empty(64 << 20, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, x_ext, d, g, B, Dm in frac_delay_configs(rng, device):
+        ct = torch.randn((*x_ext.shape[:2], d.shape[-1]), generator=gen, device=device)
+        row = {}
+        for use, fn, kernel in (
+                ("fwd", lambda: FK._CudaEngine.forward(x_ext, d, g, B, Dm), "frac_delay_kernel"),
+                ("bwd", lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm, need_dx=False), "frac_delay_bwd"),
+                ("bwd with dx", lambda: FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm), "frac_delay_bwd")):
+            row[use] = {"ms": cuda_ms(fn, 20), "kernel_ms": kernel_device_ms(fn, kernel, 20),
+                        "kernel_cold_ms": kernel_device_ms(lambda: (flush.zero_(), fn()), kernel, 20)}
+        out[name] = row
+        print(f"[time {tree}] {name}: " + "; ".join(
+            f"{use} {v['ms']:.4f} ms a call, kernel alone {fmt_ms(v['kernel_ms'])} (L2 warm), "
+            f"{fmt_ms(v['kernel_cold_ms'])} (cold)" for use, v in row.items()) + f" | {card}")
+    print(json.dumps({"tree": tree, "card": card, "frac_delay": out}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--time-ballistics-of", metavar="DIR",
                     help="only time kernel B's two launches of the package in the checkout DIR (see "
                          "time_ballistics)")
+    ap.add_argument("--time-frac-delay-of", metavar="DIR",
+                    help="only time kernel C's launches of the package in the checkout DIR (see time_frac_delay)")
     args = ap.parse_args()
 
     import torch
@@ -1293,7 +1434,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
-    tree = args.time_ballistics_of
+    tree = args.time_ballistics_of or args.time_frac_delay_of
     sys.path.insert(0, str(Path(tree or Path(__file__).parent).resolve()))
     import numpy as np
 
@@ -1313,7 +1454,8 @@ def main() -> int:
     _build.library()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     if tree:
-        time_ballistics(tree, args.seed, device, card)
+        timer = time_ballistics if args.time_ballistics_of else time_frac_delay
+        timer(tree, args.seed, device, card)
         return 0
     log = _build.build_log()
     if log:  # ptxas -v: per kernel instantiation
@@ -1333,6 +1475,7 @@ def main() -> int:
     res_c = phase_frac_delay_fwd(configs, device, card)
     res_cb = phase_frac_delay_bwd(configs, device, card)
     launches.update({k: v for k, v in phase_blind(args.seed, device, card).items() if k.startswith("frac_delay")})
+    phase_fsm(rng, device, card)
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [

@@ -7,17 +7,34 @@ use; see ``_build``). So far it covers the style-transfer training step
 (``train``): the random corruption, the TCN encoder and parameter
 projectors in train or eval mode, the render ParametricEQ -> Compressor ->
 NoiseShapedReverb -> Gain, the MR-STFT loss (``utils``), the backward
-through the kernels and an Adam update. On CPU tensors the kernels' plain
-PyTorch versions run instead, so the package imports and runs without a
-GPU.
+through the kernels and an Adam update; and blind estimation of the delay
+family (``PitchShift``, ``Chorus``, ``Flanger``). On CPU tensors the
+kernels' plain PyTorch versions run instead, so the package imports and
+runs without a GPU.
 
 Layouts at the public functions are the JAX package's: audio is
 (bs, ch, T), parameter tensors (bs, n_params).
 """
 
 from . import functional, models, modules, ops, train, utils
-from .functional import compressor, gain, noise_shaped_reverberation, parametric_eq
-from .modules import Compressor, Gain, NoiseShapedReverb, ParametricEQ, Processor
+from .functional import (
+    compressor,
+    gain,
+    modulated_delay,
+    noise_shaped_reverberation,
+    parametric_eq,
+    pitch_shift,
+)
+from .modules import (
+    Chorus,
+    Compressor,
+    Flanger,
+    Gain,
+    NoiseShapedReverb,
+    ParametricEQ,
+    PitchShift,
+    Processor,
+)
 
 __all__ = [
     "functional",
@@ -30,9 +47,14 @@ __all__ = [
     "parametric_eq",
     "compressor",
     "noise_shaped_reverberation",
+    "modulated_delay",
+    "pitch_shift",
     "Processor",
     "Gain",
     "ParametricEQ",
     "Compressor",
     "NoiseShapedReverb",
+    "Chorus",
+    "Flanger",
+    "PitchShift",
 ]

@@ -11,85 +11,93 @@
 // with gv_i = g_i once t - d_i >= 0, else 0, and lattice points outside
 // [0, Dm + B) read as zero.
 //
-// What bounds it on an H100: memory. Per output sample it reads nt delays
-// and gains and 2 * nt window samples per channel and writes one sample per
-// channel, about 35 MB at 8 x 2 x 131072 with two taps (0.021 ms measured
-// on an H100 80GB HBM3 at a 700 W power limit, PERF.md); the window reads
-// of neighbouring threads are neighbouring addresses for any smooth delay,
-// so they coalesce, and the arithmetic is a few operations per read.
+// What bounds it on an H100: bytes. Per output sample it reads nt delays
+// and gains, 2 * nt window samples per channel, and writes one sample per
+// channel. At the blind path's 8 x 1 x 131072 with two taps the delays and
+// gains are 16.8 MB of the 25.3 MB moved (x 4.3 MB, wet 4.2 MB), so their
+// streams set the bound (7.5 us at 3.35 TB/s); the gathers from x are
+// neighbouring addresses for any smooth delay and hit L1.
 //
-// What the design does about it: one thread per (b, t) computes each tap's
-// coordinates once, in registers, and loops over the channels, so the
-// delays and gains are read once for all channels. The TPU kernel's row
-// plan (which 128-lane window rows can carry weight, and gates against
-// counting a row twice) exists because a TPU vector unit evaluates hat
-// weights over whole rows; here a thread reads its two lattice points
-// directly, so work per sample is O(taps) for any window and no slope bound
-// applies.
+// What the design does about it (frac_delay.cuh): one row per blockIdx.y
+// and four consecutive outputs per thread (8 x 128 blocks of 256 threads at
+// the blind shape; 44-46 registers, five blocks to an SM), each thread with
+// its four delays and gains per tap in flight as 16-byte loads before it
+// forms any address of x, and the coordinates formed where they are used
+// (precomputed for all four outputs they took about 100 registers and
+// halved the resident blocks); 32-bit index arithmetic inside the row (the
+// card has no 64-bit divider); 16-byte stores of wet. x is not staged in
+// shared memory: it is a sixth of the bytes and L1 serves the neighbouring
+// reads. The TPU kernel's row plan (which 128-lane window rows can carry
+// weight) exists because a TPU vector unit evaluates hat weights over whole
+// rows; here a thread reads its two lattice points directly, so work per
+// sample is O(taps) for any window and no slope bound applies.
 
 #include "frac_delay.cuh"
 
 namespace {
 
-using frac_delay::Tap;
+using frac_delay::kMaxTaps;
+using frac_delay::kPerThread;
 
-__global__ void frac_delay_kernel(const float* __restrict__ x_ext,
-                                  const float* __restrict__ d,
-                                  const float* __restrict__ g,
-                                  float* __restrict__ wet, int bs, int chs,
-                                  int nt, long long Tp, int B, int Dm) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(bs) * Tp) return;
-  const int b = static_cast<int>(idx / Tp);
-  const long long t = idx - static_cast<long long>(b) * Tp;
-  const int j = static_cast<int>(t % B);
-  const long long start = t - j;
+template <bool kVec>
+__global__ void __launch_bounds__(frac_delay::kThreads)
+    frac_delay_kernel(const float* __restrict__ x_ext,
+                      const float* __restrict__ d, const float* __restrict__ g,
+                      float* __restrict__ wet, int bs, int chs, int nt, int Tp,
+                      int B, int Dm) {
+  frac_delay::Outputs o;
+  frac_delay::load_outputs<kVec>(d, g, bs, nt, Tp, B, o);
+  if (o.n == 0) return;
+  const int T_ext = Tp + Dm;
   const int W = Dm + B;
-  const long long T_ext = Tp + Dm;
-
-  Tap taps[frac_delay::kMaxTaps];
-#pragma unroll
-  for (int i = 0; i < frac_delay::kMaxTaps; ++i) {
-    if (i < nt) {
-      const long long o = (static_cast<long long>(i) * bs + b) * Tp + t;
-      taps[i] = frac_delay::make_tap(d[o], g[o], j, t, Dm, W);
-    }
-  }
   for (int c = 0; c < chs; ++c) {
-    const long long row = static_cast<long long>(b) * chs + c;
-    const float* win = x_ext + row * T_ext + start;
-    float acc = 0.0f;
+    const size_t row = static_cast<size_t>(blockIdx.y) * chs + c;
+    const float* xr = x_ext + row * T_ext;
+    float acc[kPerThread];
 #pragma unroll
-    for (int i = 0; i < frac_delay::kMaxTaps; ++i) {
-      if (i < nt) {
-        const Tap& p = taps[i];
-        const float v = frac_delay::interp(p, frac_delay::read0(win, p),
-                                           frac_delay::read1(win, p));
-        acc = __fadd_rn(acc, __fmul_rn(p.gv, v));
+    for (int k = 0; k < kPerThread; ++k) {
+      acc[k] = 0.0f;
+      const float* win = xr + frac_delay::window_start(o, k);
+#pragma unroll
+      for (int i = 0; i < kMaxTaps; ++i) {
+        if (i < nt && k < o.n) {
+          const frac_delay::Tap p = frac_delay::tap(o, i, k, Dm, W);
+          const float v = frac_delay::interp(p, frac_delay::read0(win, p),
+                                             frac_delay::read1(win, p));
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(p.gv, v));
+        }
       }
     }
-    wet[row * Tp + t] = acc;
+    frac_delay::store4<kVec>(wet + row * Tp + o.t0, o.n, acc);
   }
 }
 
 }  // namespace
 
 // x_ext: (bs, chs, Dm + Tp); d, g: (nt, bs, Tp) with 1 <= nt <= 2 and Tp a
-// multiple of B; wet: (bs, chs, Tp); all fp32, contiguous, on the device.
-// Launches on `stream` and returns cudaGetLastError() as an int.
+// multiple of B; wet: (bs, chs, Tp); all fp32, contiguous, on the device;
+// Tp + Dm < 2^31 and bs < 65536. Launches on `stream` and returns
+// cudaGetLastError() as an int.
 extern "C" int frac_delay_f32(const float* x_ext, const float* d,
                               const float* g, float* wet, int bs, int chs,
                               int nt, long long Tp, int B, int Dm,
                               void* stream) {
-  if (nt < 1 || nt > frac_delay::kMaxTaps) {
+  if (nt < 1 || nt > kMaxTaps || bs < 1 || bs > 65535 || B < 1 || Dm < 0 ||
+      Tp + Dm >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n = static_cast<long long>(bs) * Tp;
-  const long long blocks =
-      (n + frac_delay::kThreads - 1) / frac_delay::kThreads;
-  frac_delay_kernel<<<static_cast<unsigned int>(blocks), frac_delay::kThreads,
-                      0, static_cast<cudaStream_t>(stream)>>>(
-      x_ext, d, g, wet, bs, chs, nt, Tp, B, Dm);
+  const int tp = static_cast<int>(Tp);
+  if (tp == 0) return 0;
+  const dim3 grid((tp + frac_delay::kBlockOutputs - 1) / frac_delay::kBlockOutputs, bs);
+  const bool vec = tp % 4 == 0 && frac_delay::aligned16(d) &&
+                   frac_delay::aligned16(g) && frac_delay::aligned16(wet);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    frac_delay_kernel<true><<<grid, frac_delay::kThreads, 0, s>>>(
+        x_ext, d, g, wet, bs, chs, nt, tp, B, Dm);
+  } else {
+    frac_delay_kernel<false><<<grid, frac_delay::kThreads, 0, s>>>(
+        x_ext, d, g, wet, bs, chs, nt, tp, B, Dm);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,10 @@ means the same in both packages. ``filter_method="pallas"``,
 ``smoother="pallas"``, ``smoother="exact_pallas"`` and ``adjoint="pallas"``
 select the hand-written CUDA kernels here (on a CPU tensor, their plain
 PyTorch versions). ``filter_method="exact"``, ``smoother="exact"`` and
-``adjoint="ad"`` run the plain versions on any device. Other options raise
-``ValueError``.
+``adjoint="ad"`` run the plain versions on any device. ``"fsm"``, the
+default of ``parametric_eq`` and ``compressor`` as in the JAX package, is
+the reference's frequency-sampling approximation on ``torch.fft``. Other
+options raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .ops.ballistics_kernel import ballistics_pallas
 from .ops.biquad import biquad
+from .ops.fft_filter import fsm_onepole_step_response, lfilter_via_fsm, sosfilt_via_fsm
 from .ops.filterbank import octave_band_filterbank
 from .ops.fir import fft_conv_causal, fft_correlate_valid
 from .ops.frac_delay_kernel import frac_delay_pallas
@@ -115,11 +118,12 @@ def parametric_eq(
         x: (bs, chs, T).
         sample_rate: audio sample rate (Hz).
         *_gain_db / *_cutoff_freq / *_q_factor: shape (bs,) each.
-        filter_method: "pallas" (the CUDA biquad-cascade kernel; its plain
-            version on a CPU tensor), "exact" (the plain block-state
-            version on any device, differentiable). The JAX package's
-            "fsm", "block", "coupled" and callable methods are not ported
-            yet and raise.
+        filter_method: "fsm" (the reference's frequency-sampling
+            approximation, on torch.fft), "pallas" (the CUDA biquad-cascade
+            kernel; its plain version on a CPU tensor) or "exact" (the plain
+            block-state version on any device), all differentiable. The JAX
+            package's "block", "coupled" and callable methods are not
+            ported yet and raise.
     """
     bs = x.shape[0]
     sos = parametric_eq_sos(
@@ -153,10 +157,12 @@ def _apply_sos(sos, x, filter_method):
         return sosfilt_pallas(sos, x)
     if filter_method == "exact":
         return sosfilt_plain(sos, x)
-    if filter_method in ("fsm", "block", "coupled"):
-        raise _not_ported(f"filter_method={filter_method!r}", "items 2-3 and 9")
+    if filter_method == "fsm":
+        return sosfilt_via_fsm(sos, x)
+    if filter_method in ("block", "coupled"):
+        raise _not_ported(f"filter_method={filter_method!r}", "items 3 and 5")
     raise ValueError(
-        f"Unknown filter_method: {filter_method!r}. Expected 'pallas' or 'exact'."
+        f"Unknown filter_method: {filter_method!r}. Expected 'fsm', 'pallas' or 'exact'."
     )
 
 
@@ -208,20 +214,30 @@ def static_gain_computer(x_db, threshold_db, ratio, knee_db, mode: str) -> torch
 
 def _smooth_gain(g_c, alpha_a, alpha_r, smoother):
     """Smooth a gain-reduction curve (bs, 1, T) with the selected smoother:
-    "exact_pallas" (true attack/release ballistics, CUDA kernel), "pallas"
-    (attack-only one-pole through the CUDA biquad-cascade kernel) or "exact"
-    (true ballistics, plain loop)."""
+    "fsm" (attack-only one-pole by the reference's frequency-sampling
+    approximation), "exact_pallas" (true attack/release ballistics, CUDA
+    kernel), "pallas" (attack-only one-pole through the CUDA biquad-cascade
+    kernel) or "exact" (true ballistics, plain loop)."""
     if smoother == "exact_pallas":
         return ballistics_pallas(g_c, alpha_a, alpha_r)
-    if smoother == "pallas":
+    if smoother in ("pallas", "fsm"):
         b, a = onepole_ba(alpha_a.reshape(g_c.shape[0], 1).to(g_c.dtype))
-        return lfilter1_pallas(g_c, b, a)
+        if smoother == "pallas":
+            return lfilter1_pallas(g_c, b, a)
+        # DC split: the gain curve's large mean (tens of dB) rounded through
+        # the big fp32 FFT would set the error (about 3e-4 against the 1e-4
+        # parity bar). FSM is linear, so filter the zero-mean part and add
+        # the mean times the closed-form FSM step response back.
+        mean = torch.mean(g_c, dim=-1, keepdim=True)
+        alpha = alpha_a.reshape(g_c.shape[0], *([1] * (g_c.ndim - 1))).to(g_c.dtype)
+        step = fsm_onepole_step_response(alpha, g_c.shape[-1])
+        return lfilter_via_fsm(g_c - mean, b, a) + mean * step
     if smoother == "exact":
         return ballistics_smooth(g_c, alpha_a, alpha_r, mode="exact")
-    if smoother in ("fsm", "block", "attack_only", "parallel"):
-        raise _not_ported(f"smoother={smoother!r}", "items 2-3 and 9")
+    if smoother in ("block", "attack_only", "parallel"):
+        raise _not_ported(f"smoother={smoother!r}", "items 3 and 5")
     raise ValueError(
-        f"Unknown smoother: {smoother!r}. Expected 'exact_pallas', 'pallas' or 'exact'."
+        f"Unknown smoother: {smoother!r}. Expected 'fsm', 'exact_pallas', 'pallas' or 'exact'."
     )
 
 
@@ -248,8 +264,8 @@ def compressor(
             makeup_gain_db: shape (bs,) each.
         eps: floor of the level detector.
         lookahead_samples: delay the audio against the gain curve.
-        smoother: "exact_pallas", "pallas" or "exact" (see
-            :func:`_smooth_gain`). The JAX package's "fsm", "block",
+        smoother: "fsm", "exact_pallas", "pallas" or "exact" (see
+            :func:`_smooth_gain`). The JAX package's "block",
             "attack_only", "parallel" and callable smoothers are not
             ported yet and raise.
     """

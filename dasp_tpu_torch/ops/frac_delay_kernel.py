@@ -38,9 +38,9 @@ form splits the tie. Values agree either way.
 ``_PlainEngine`` runs the same formulas in plain PyTorch (two gathers
 forward; ``index_add_`` for dx) on any device and in any float dtype, and
 is what CPU tensors use. Both round the forward in the same order. dx is
-computed only when autograd asks for it. On the card dx is accumulated with
-atomics, so it is not bitwise reproducible from run to run; dd and dg are
-(one thread per output sample, a fixed order).
+computed only when autograd asks for it. On the card dx is summed with
+atomics, in an order that changes from run to run, so it is not bitwise
+reproducible; dd and dg are (a fixed order per output sample, no atomics).
 
 Launches are counted per kernel: ``frac_delay_pallas.launches`` (forward)
 and ``frac_delay_pallas.bwd_launches`` (backward). The name is kept from the
@@ -143,6 +143,17 @@ class _PlainEngine:
     backward = staticmethod(frac_delay_bwd_plain)
 
 
+def _launch(device, fn, *args) -> None:
+    """Call the C entry point ``fn`` with the current stream of ``device``
+    (entering it first only when it is not the current device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, fn.__name__)
+
+
 class _CudaEngine:
     @staticmethod
     def forward(x_ext, d_stk, g_stk, B, Dm):
@@ -151,14 +162,8 @@ class _CudaEngine:
         wet = torch.empty((bs, chs, Tp), dtype=x_ext.dtype, device=x_ext.device)
         if wet.numel() == 0:
             return wet
-        lib = _build.library()
-        with torch.cuda.device(x_ext.device):
-            stream = torch.cuda.current_stream(x_ext.device).cuda_stream
-            err = lib.frac_delay_f32(
-                x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(), wet.data_ptr(),
-                bs, chs, nt, Tp, B, Dm, stream,
-            )
-        _build.check(err, "frac_delay_f32")
+        _launch(x_ext.device, _build.library().frac_delay_f32,
+                x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(), wet.data_ptr(), bs, chs, nt, Tp, B, Dm)
         frac_delay_pallas.launches += 1
         return wet
 
@@ -171,15 +176,10 @@ class _CudaEngine:
         dg = torch.empty_like(g_stk)
         if ct.numel() == 0:
             return dx, dd.zero_(), dg.zero_()
-        lib = _build.library()
-        with torch.cuda.device(x_ext.device):
-            stream = torch.cuda.current_stream(x_ext.device).cuda_stream
-            err = lib.frac_delay_bwd_f32(
+        _launch(x_ext.device, _build.library().frac_delay_bwd_f32,
                 x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(), ct.data_ptr(),
                 None if dx is None else dx.data_ptr(), dd.data_ptr(), dg.data_ptr(),
-                bs, chs, nt, Tp, B, Dm, stream,
-            )
-        _build.check(err, "frac_delay_bwd_f32")
+                bs, chs, nt, Tp, B, Dm)
         frac_delay_pallas.bwd_launches += 1
         return dx, dd, dg
 
@@ -218,6 +218,10 @@ def _check_shapes(x_ext, d_stk, g_stk, B, Dm):
 
 
 def _check_cuda(*tensors) -> None:
+    bs, _, T_ext = tensors[0].shape
+    if T_ext >= 2**31 or bs >= 2**16:
+        raise ValueError(f"the frac_delay kernels index a row in 32 bits and take bs < 65536, got x_ext "
+                         f"{tuple(tensors[0].shape)}")
     for name, t in zip(("x_ext", "d_stk", "g_stk"), tensors):
         if t.dtype != torch.float32:
             raise TypeError(f"frac_delay kernel takes float32, got {name} {t.dtype}")

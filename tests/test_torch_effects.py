@@ -214,9 +214,7 @@ def test_processor_checks_width_and_range():
 
 
 @pytest.mark.parametrize("make,option", [
-    (lambda: P.ParametricEQ(SR), "fsm"),
     (lambda: P.ParametricEQ(SR, filter_method="block"), "block"),
-    (lambda: P.Compressor(SR), "fsm"),
     (lambda: P.Compressor(SR, smoother="parallel"), "parallel"),
 ])
 def test_unported_options_raise(make, option):

@@ -244,3 +244,36 @@ def test_dx_only_when_asked_and_input_checks():
         FK.frac_delay_pallas(xe[..., :-1], d_t, torch.tensor(g), B, DM)
     with pytest.raises(ValueError, match="d_stk"):
         FK.frac_delay_pallas(xe, torch.zeros(3, *d.shape[1:]), torch.zeros(3, *d.shape[1:]), B, DM)
+
+
+def thread_outputs(Tp, B, per_thread=4):
+    """The outputs each thread of C-fwd and C-bwd's dd/dg kernel takes
+    (csrc/frac_delay.cuh, load_outputs), emulated: t0 = 4 * (thread's
+    index in the row), n = min(4, Tp - t0), and j stepped from t0 % B,
+    wrapping to 0 at B. Returns (t, j, window start t - j) for each."""
+    out = []
+    for t0 in range(0, Tp, per_thread):
+        j = t0 % B
+        for k in range(min(per_thread, Tp - t0)):
+            if k > 0:
+                j += 1
+                if j == B:
+                    j = 0
+            out.append((t0 + k, j, t0 + k - j))
+    return out
+
+
+@pytest.mark.parametrize("B,nb", [(1, 7), (3, 333), (250, 19), (256, 8)])
+def test_kernel_tiling_emulation(B, nb):
+    """The kernels' four outputs per thread cover every output sample
+    once, with j = t % B and the window start t - j the plain engine uses,
+    for any B: groups of four straddle tile edges where B % 4 != 0, and
+    B < 4 wraps j inside a group. The 16-byte path (Tp % 4 == 0) leaves no
+    thread with a partial group."""
+    Tp = nb * B
+    got = thread_outputs(Tp, B)
+    assert [t for t, _, _ in got] == list(range(Tp))
+    start, *_ = FK._coords(torch.zeros(1, 1, Tp), B, DM)
+    assert [(j, s) for _, j, s in got] == [(t % B, int(v)) for t, v in zip(range(Tp), start)]
+    if Tp % 4 == 0:
+        assert all(min(4, Tp - t0) == 4 for t0 in range(0, Tp, 4))

@@ -23,9 +23,10 @@ training step through all kernel uses within
 1e-3 (loss) and 1e-2 (gradient norm) of the plain path. The
 fractional-delay kernels (C-fwd, C-bwd) against their plain engine on the
 same card tensors: the forward, dd and dg bitwise equal (the same fp32
-operations in the same order, at most two channels), dx within 1e-6 of its
-largest value (both sum by atomics, in an order that changes from run to
-run).
+operations in the same order, channels summed in order), dx within 1e-6 of
+its largest value (both sum by atomics, in an order that changes from run
+to run), on edge shapes too (B % 4 != 0, ragged T, odd Dm, one to three
+channels, misaligned rows, delays drawn at random).
 """
 
 import numpy as np
@@ -408,11 +409,11 @@ def test_render_runs_through_both_kernels(cuda):
     assert float((y_k - y_p).abs().max()) <= 2 * A_TOL * float(y_p.abs().max())
 
 
-def frac_delay_case(nt, chs, T, B, Dm, seed=0, edge=False):
+def frac_delay_case(nt, chs, T, B, Dm, seed=0, edge=False, drawn=False):
     """x_ext, d_stk, g_stk for the kernel: LFO or sawtooth delays in [0,
     Dm - 1), gains in (0, 1); ``edge`` puts d = 0 on the last sample of
     every tile (read position W - 1, whose second point is past the
-    window)."""
+    window); ``drawn`` draws every delay uniformly on [0, Dm - 1]."""
     rng = np.random.default_rng(seed)
     nb = -(-T // B)
     Tp = nb * B
@@ -424,6 +425,8 @@ def frac_delay_case(nt, chs, T, B, Dm, seed=0, edge=False):
         d.append((Dm - 2) * p)
         g.append(np.sin(np.pi * p))
     d = np.stack(d).astype(np.float32)
+    if drawn:
+        d = rng.uniform(0.0, Dm - 1.0, d.shape).astype(np.float32)
     if edge:
         d[..., B - 1 :: B] = 0.0
     return [torch.tensor(a) for a in (x, d, np.stack(g).astype(np.float32))]
@@ -452,6 +455,32 @@ def test_frac_delay_kernels_match_plain_engine(cuda, nt, chs, T, B, Dm, edge):
     dx_p, dd_p, dg_p = FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm)
     assert torch.equal(leaves[1].grad, dd_p) and torch.equal(leaves[2].grad, dg_p)
     assert float((leaves[0].grad - dx_p).abs().max()) <= 1e-6 * float(dx_p.abs().max())
+
+
+@pytest.mark.parametrize("nt,chs,T,B,Dm,kind", [
+    (2, 2, 4700, 250, 2647, "smooth"),  # B % 4 != 0, Tp % 4 != 0: the scalar path; groups straddle tiles
+    (1, 3, 3001, 256, 301, "edge"),  # ragged T, odd Dm, three channels
+    (2, 1, 4096, 256, 1999, "misaligned"),  # Tp % 4 == 0 but d, g 4 bytes off 16-byte alignment
+    (1, 1, 20000, 512, 12001, "drawn"),  # delays drawn on [0, Dm - 1]: scattered dx
+    (2, 3, 8192, 256, 4001, "drawn"),
+])
+def test_frac_delay_kernels_on_edge_shapes(cuda, nt, chs, T, B, Dm, kind):
+    """C-fwd bitwise equal to the plain engine, C-bwd's dd and dg bitwise
+    (with and without dx) and dx within 1e-6 of its largest value."""
+    x_ext, d, g = (a.to(cuda) for a in frac_delay_case(nt, chs, T, B, Dm, edge=kind == "edge",
+                                                           drawn=kind == "drawn"))
+    if kind == "misaligned":
+        d, g = (torch.cat([a.reshape(-1)[:1], a.reshape(-1)])[1:].view(a.shape) for a in (d, g))
+        assert d.data_ptr() % 16 == 4 and d.is_contiguous()
+    ct = torch.randn(2, chs, d.shape[-1], device=cuda)
+    wet = FK.frac_delay_pallas(x_ext, d, g, B, Dm)
+    assert torch.equal(wet, FK.frac_delay_plain(x_ext, d, g, B, Dm))
+    dx, dd, dg = FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm)
+    dx_p, dd_p, dg_p = FK.frac_delay_bwd_plain(x_ext, d, g, ct, B, Dm)
+    assert torch.equal(dd, dd_p) and torch.equal(dg, dg_p)
+    assert float((dx - dx_p).abs().max()) <= 1e-6 * float(dx_p.abs().max())
+    _, dd_n, dg_n = FK._CudaEngine.backward(x_ext, d, g, ct, B, Dm, need_dx=False)
+    assert torch.equal(dd_n, dd_p) and torch.equal(dg_n, dg_p)
 
 
 def test_frac_delay_right_edge_reads_nothing_past_the_window(cuda):
