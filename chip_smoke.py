@@ -15,7 +15,8 @@ of the pitch shifter and chorus at full width:
   phase 3  ballistics kernel (B-fwd, speculate and verify) at 8 x 1 x 131072
            on compressor gain curves (with and without y0), the 100 / 100,
            5 / 100 and 20 / 20 ms time constants, a constant g, a step, ties
-           g == y, the corruption's 262144 samples and a ragged T: bitwise
+           g == y, long runs of g = 0 (bursts between silences below the
+           knee), the corruption's 262144 samples and a ragged T: bitwise
            equal to the plain loop, chunk-chained == one pass; the rounds'
            work, a call's and the kernel's device time for each
   phase 4  the slice: full-width StyleTransferNet (bf16 encoder convolutions,
@@ -68,6 +69,29 @@ of the pitch shifter and chorus at full width:
            the compressor within 1e-4 of max(1, peak); the EQ's FIR
            application on a fixed response within it, its whole distance
            printed beside the CPU's (see phase_fsm); ms of each
+  phase 12 the block-state and scan-based filters (sosfilt_blockmat and
+           sosfilt_exact on the EQ's 8 x 131072 with 6 random sections,
+           lfilter1_blockmat on the compressor smoother's 8 x 1 x 262144):
+           output and gradient against float64, with TF32 off and then on
+           (set by the caller; the output must not change), no kernel
+           launched; ms a call and device ms alone, forward and gradient,
+           beside kernel A (sosfilt_pallas, lfilter1_pallas) on the same
+           inputs
+  phase 13 the JAX bench's own step: make_style_training with EQ "block" and
+           compressor "block" from phase 7's weights, batch and noise: its
+           corruption, and its render loss and gradient on one corrupted
+           batch, against the kernel path of the same function (EQ
+           "pallas", compressor "pallas": the "block" smoother is the
+           attack-only one-pole) at phase 4's and phase 7's tolerances; 1
+           warm-up and 3 timed steps split as phase 7's, no kernel launched
+  phase 14 the reference set through Chain: 4 mono tracks of 131072 samples
+           at bs 8 through StereoPanner, StereoBus(4) and Chain([Distortion,
+           ParametricEQ("pallas"), Compressor("exact_pallas"),
+           StereoWidener, Gain]) from one (8, 35) normalized tensor, the
+           MR-STFT loss and backward: exact launches of A (forward,
+           save-all, adjoint) and B (forward, backward), output and
+           gradient against the plain path (EQ "exact", compressor
+           "exact"); ms of the render and of forward + backward
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -382,6 +406,25 @@ def compressor_curve(rng, n, device):
     return g, aa.reshape(BS), ar.reshape(BS)
 
 
+def gated_curve(rng, n, device):
+    """A compressor's gain curve (BS, 1, n) with long runs of g = 0 exactly:
+    bursts of 0.25 * randn between silences at -66 dB, below the knee of a
+    -20 dB threshold (ratio 4, knee 6 dB), where static_gain_computer
+    returns 0. Bursts and silences last 12000 samples, from a random phase
+    per row."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch import functional as F
+
+    seg = 12000
+    offset = rng.integers(0, 2 * seg, (BS, 1))
+    gate = np.where(((np.arange(n)[None, :] + offset) // seg) % 2 == 0, 0.25, 5e-4)
+    x = torch.tensor((rng.standard_normal((BS, n)) * gate).astype(np.float32), device=device)
+    x_db = 20.0 * torch.log10(torch.clamp(x.abs(), min=1e-8))
+    return F.static_gain_computer(x_db, -20.0, 4.0, 6.0, "compressor")[:, None].contiguous()
+
+
 def with_ties(g, aa, ar):
     """g with g[n] set to y[n-1] of the plain loop (from rest) on every 7th
     sample, so the kernel's branch compares equal values there."""
@@ -422,6 +465,9 @@ def phase_kernel_b(rng, device):
     step = torch.zeros_like(g)
     step[..., T // 3 : 2 * T // 3] = -12.0
     g2, aa2, ar2 = compressor_curve(rng, 2 * T, device)
+    # from a spawned generator, so that the later phases draw what they drew
+    # before this case was added
+    gated = gated_curve(rng.spawn(1)[0], T, device)
     y0 = -12.0 * torch.rand((BS, 1), device=device)
     cases = [  # name, g, attack, release, y0
         ("compressor curve", g, aa, ar, None),
@@ -432,6 +478,7 @@ def phase_kernel_b(rng, device):
         ("constant g = -6 dB", const, a5, a100, None),
         ("step 0 / -12 / 0 dB", step, a5, a100, None),
         ("ties g == y every 7th sample", with_ties(g, a5, a100).to(device), a5, a100, None),
+        ("long g = 0 runs (bursts, silences below the knee)", gated, aa, ar, None),
         (f"T = {2 * T}, compressor curve", g2, aa2, ar2, None),
         (f"T = {2 * T}, 100 / 100 ms", g2, a100, a100, None),
         (f"ragged T = {T - RAGGED}", g[..., : T - RAGGED].contiguous(), aa, ar, None),
@@ -879,6 +926,7 @@ def phase_training(seed, device, card):
     # corruption output and render noise
     x, rand = batches[-1]
     state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    corrupt_state = noise_gen.get_state()
     batch = TR.corrupt(procs, x, rand, generator=noise_gen)
     render_state = noise_gen.get_state()
 
@@ -907,7 +955,10 @@ def phase_training(seed, device, card):
           f"{leaf:.2e} of grad-norm")
     require(loss_rel <= TRAIN_LOSS_TOL, f"loss rel err {loss_rel:.3e} > {TRAIN_LOSS_TOL}")
     require(gn_rel <= TRAIN_GRAD_NORM_TOL, f"grad-norm rel err {gn_rel:.3e} > {TRAIN_GRAD_NORM_TOL}")
-    return launches
+    # what phase 13 starts from: these weights, this batch and noise
+    ctx = {"procs": procs, "state": state, "batch": (x, rand), "noise_state": corrupt_state,
+           "batches": batches, "seed": seed}
+    return launches, ctx
 
 
 def frac_delay_configs(rng, device):
@@ -1388,6 +1439,319 @@ def phase_fsm(rng, device, card):
             require(e <= FSM_TOL, f"fsm {name}: {what} {e:.3e} of max(1, peak) from float64 > {FSM_TOL}")
 
 
+def tf32_matmul(on: bool) -> None:
+    """What a caller does to allow TF32 in fp32 matmuls (or to forbid it)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def rel_err(got, truth) -> float:
+    """Max abs error against a float64 truth, of the largest truth value."""
+    return float((got.double() - truth).abs().max() / truth.abs().max())
+
+
+def phase_block(rng, device, card):
+    """Phase 12: sosfilt_blockmat and sosfilt_exact on the EQ's shapes and
+    lfilter1_blockmat on the compressor smoother's, against float64 and
+    beside kernel A on the same inputs, with TF32 off and on."""
+    import numpy as np
+    import scipy.signal
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch.modules import ParametricEQ
+    from dasp_tpu_torch.ops import embed_first_order_sos, onepole_ba, stabilize_sos
+    from dasp_tpu_torch.ops import iir as I
+    from dasp_tpu_torch.ops import iir_kernel as IK
+
+    eq = random_params(ParametricEQ(SR), rng, BS, device)
+    sos6 = stabilize_sos(F.parametric_eq_sos(BS, torch.float32, SR, *eq.values(), device=device)).contiguous()
+    x = torch.tensor((rng.standard_normal((BS, 1, T)) * 0.25).astype(np.float32), device=device)
+    w = torch.tensor(rng.standard_normal((BS, 1, T)).astype(np.float32), device=device)
+    g, aa, _ = compressor_curve(rng, 2 * T, device)
+    b1, a1 = onepole_ba(aa.reshape(BS, 1))
+    wg = torch.tensor(rng.standard_normal((BS, 1, 2 * T)).astype(np.float32), device=device)
+
+    def rows64(sections, sig):
+        return IK.sosfilt_rows_plain(sections, sig.reshape(BS, -1)).reshape(sig.shape)
+
+    # (problem, coefficients, signal, cotangent, coefficient names, kernel A's use, the block
+    # functions, float64 forward, the float64 recursion for the gradient); every function takes
+    # (*coefficients, signal)
+    problems = [
+        (f"EQ {BS} x {T}, 6 sections", (sos6,), x, w, ("dsos",), ("sosfilt_pallas", IK.sosfilt_pallas),
+         {"sosfilt_blockmat": I.sosfilt_blockmat, "sosfilt_exact": I.sosfilt_exact},
+         lambda: np.stack([scipy.signal.sosfilt(sos6[i].double().cpu().numpy(), x[i, 0].double().cpu().numpy())
+                           for i in range(BS)]),
+         lambda s, z: rows64(s, z)),
+        (f"compressor smoother {BS} x 1 x {2 * T}", (b1, a1), g, wg, ("db", "da"),
+         ("lfilter1_pallas", lambda b, a, z: IK.lfilter1_pallas(z, b, a)),
+         {"lfilter1_blockmat": lambda b, a, z: I.lfilter1_blockmat(z, b, a)},
+         lambda: np.stack([scipy.signal.lfilter(b1[i].double().cpu().numpy(), a1[i].double().cpu().numpy(),
+                                                g[i, 0].double().cpu().numpy()) for i in range(BS)]),
+         lambda b, a, z: rows64(embed_first_order_sos(b, a)[:, None], z)),
+    ]
+
+    def run(fn, coefs, sig, ct, dtype=None):
+        leaves = [t.to(dtype or t.dtype).clone().requires_grad_() for t in (*coefs, sig)]
+        y = fn(*leaves)
+        (y * ct.to(y.dtype)).sum().backward()
+        return y.detach(), [t.grad for t in leaves]
+
+    results = {}
+    for problem, coefs, sig, ct, names, (a_name, a_fn), fns, fwd64, grad64 in problems:
+        names = (*names, "dx")
+        ref = torch.tensor(fwd64(), device=device)
+        _, truth = run(grad64, coefs, sig, ct, torch.float64)
+        torch.cuda.synchronize()
+
+        def errors(y, grads):
+            out = {"output": float((y[:, 0].double() - ref).abs().max()) / max(1.0, float(ref.abs().max()))}
+            out.update({n: rel_err(gr, t) for n, gr, t in zip(names, grads, truth)})
+            return out
+
+        y_a, g_a = run(a_fn, coefs, sig, ct)
+        e_a = errors(y_a, g_a)
+        print(f"[block {problem}] kernel A ({a_name}) from float64: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e_a.items()))
+
+        def timings(fn):
+            grad = lambda: run(fn, coefs, sig, ct)  # noqa: E731
+            with torch.no_grad():
+                fwd = lambda: fn(*coefs, sig)  # noqa: E731
+                row = {"forward_ms": cuda_ms(fwd, 5), "forward_device_ms": device_ms_by_kernel(fwd, (), 3)["all"]}
+            row.update({"gradient_ms": cuda_ms(grad, 3), "gradient_device_ms": device_ms_by_kernel(grad, (), 2)["all"]})
+            return row
+
+        rows = {a_name: {"err": e_a, **timings(a_fn)}}
+        for name, fn in fns.items():
+            outs = {}
+            for tf32 in (False, True):
+                tf32_matmul(tf32)
+                try:
+                    before = launch_counts()
+                    outs[tf32] = run(fn, coefs, sig, ct)
+                    torch.cuda.synchronize()
+                    used = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+                finally:
+                    tf32_matmul(False)
+                e = errors(*outs[tf32])
+                print(f"[block {problem}] {name}, TF32 {'on' if tf32 else 'off'}: from float64 "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in e.items()) + f"; kernels launched {used}")
+                require(not used, f"{name}: launched {used}")
+                require(all(bool(torch.isfinite(t).all()) for t in (outs[tf32][0], *outs[tf32][1])),
+                        f"{name}: non-finite output or gradient")
+                for k, v in e.items():
+                    floor = A_BOUND if k == "output" else A_GRAD_BOUND["dx" if k == "dx" else "dsos"]
+                    require(v <= floor and v <= A_PLAIN_FACTOR * e_a[k] + floor,
+                            f"{name} {problem}, TF32 {tf32}: {k} {v:.3e} from float64 > {floor} "
+                            f"(and {A_PLAIN_FACTOR} x kernel A's {e_a[k]:.3e} + it)")
+            same = torch.equal(outs[False][0], outs[True][0])
+            grads_same = all(torch.equal(a, b) for a, b in zip(outs[False][1], outs[True][1]))
+            print(f"[block {problem}] {name}: output with TF32 on bitwise equal to off: {same}; gradients: "
+                  f"{grads_same}")
+            require(same, f"{name}: the output changes with TF32")
+            rows[name] = {"err": e, **timings(fn)}
+
+        # an fp32 matmul of the same shape does change with TF32 on this card
+        f = sig.reshape(BS, -1, 128)
+        op = torch.randn((BS, 128, 128), device=device)
+        tf32_matmul(True)
+        try:
+            m_on = torch.matmul(f, op)
+        finally:
+            tf32_matmul(False)
+        tf32_gap = float((m_on - torch.matmul(f, op)).abs().max() / torch.matmul(f, op).abs().max())
+        print(f"[block {problem}] an fp32 torch.matmul ({BS}, {f.shape[1]}, 128) @ ({BS}, 128, 128) with TF32 on "
+              f"differs from off by {tf32_gap:.3e} of its peak")
+        for name, r in rows.items():
+            print(f"[block time] {problem} {name}: forward {r['forward_ms']:.4f} ms a call, "
+                  f"{fmt_ms(r['forward_device_ms'])} of device work; forward + gradient {r['gradient_ms']:.4f} ms "
+                  f"a call, {fmt_ms(r['gradient_device_ms'])} of device work | {card}")
+        results[problem] = rows
+    return results
+
+
+def phase_block_step(ctx, device, card):
+    """Phase 13: the JAX bench's own step (EQ "block", compressor "block")
+    from phase 7's weights, batch and noise: the corruption, and the
+    render's loss and gradient on one corrupted batch, against the kernel
+    path of the same function; then 1 warm-up and 3 timed steps.
+
+    The "block" smoother is the attack-only one-pole, as "pallas" (kernel A
+    on a degenerate biquad); phase 7's "exact_pallas" is the true
+    attack/release ballistics, another function. So the step is held to
+    the kernel path with EQ "pallas" and compressor "pallas" at phase 7's
+    tolerances; its distance from phase 7's own path is printed."""
+    import torch
+
+    from dasp_tpu_torch import train as TR
+    from dasp_tpu_torch.models import make_style_processors
+
+    net, procs, opt = TR.make_style_training(SR, device=device, eq_filter_method="block",
+                                             compressor_smoother="block")
+    same_fn = make_style_processors(SR, reverb_num_samples=IR, eq_filter_method="pallas",
+                                    compressor_smoother="pallas", reverb_noise_mode="frequency")
+    gen = torch.Generator(device=device)
+    x, rand = ctx["batch"]
+
+    def corrupted(processors):
+        gen.set_state(ctx["noise_state"])
+        return TR.corrupt(processors, x, rand, generator=gen), gen.get_state()
+
+    # the corruption of both paths, and the render's loss and gradient of
+    # both on one corrupted batch (phase 7's comparison; the bf16 encoder
+    # would amplify the corruptions' rounding differences in its input)
+    batch_k, render_state = corrupted(same_fn)
+    reset_launch_counts()
+    batch_b, _ = corrupted(procs)
+    torch.cuda.synchronize()
+    used = {k: v for k, v in launch_counts().items() if v}
+    corrupt_diff = max(float((b - k).abs().max()) / float(k.abs().max()) for b, k in zip(batch_b, batch_k))
+
+    def grads(processors, batch):
+        net.load_state_dict(ctx["state"])
+        net.zero_grad(set_to_none=True)
+        gen.set_state(render_state)
+        loss = TR.render_loss(net, processors, *batch, generator=gen)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+
+    loss_7, _ = grads(ctx["procs"], batch_k)
+    loss_k, g_k = grads(same_fn, batch_k)
+    before = launch_counts()
+    loss_b, g_b = grads(procs, batch_k)
+    torch.cuda.synchronize()
+    used.update({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+    net.load_state_dict(ctx["state"])
+    norm = lambda g: math.sqrt(sum(float((v.double() ** 2).sum()) for v in g.values()))  # noqa: E731
+    loss_rel = abs(loss_b - loss_k) / abs(loss_k)
+    gn_rel = abs(norm(g_b) - norm(g_k)) / norm(g_k)
+    leaf = max(float((g_b[k] - g_k[k]).abs().max()) for k in g_k) / norm(g_k)
+    print(f"[block step] EQ 'block', compressor 'block' vs the kernel path of the same function (EQ 'pallas', "
+          f"compressor 'pallas'), phase 7's weights, batch and noise: corruption max abs diff {corrupt_diff:.3e} of "
+          f"its peak (tolerance 2 x {A_BOUND}); render loss {loss_b:.6f} vs {loss_k:.6f}, rel err {loss_rel:.2e}; "
+          f"grad-norm rel err {gn_rel:.2e}; max grad-leaf err {leaf:.2e} of grad-norm; kernels launched {used} "
+          f"(phase 7's path, compressor 'exact_pallas': loss {loss_7:.6f}, {abs(loss_b - loss_7) / abs(loss_7):.2e} "
+          f"away)")
+    require(not used, f"block step launched {used}")
+    require(math.isfinite(loss_b) and all(bool(torch.isfinite(v).all()) for v in g_b.values()),
+            "block step: non-finite loss or gradients")
+    require(corrupt_diff <= 2 * A_BOUND, f"block corruption differs by {corrupt_diff:.3e} of its peak")
+    require(loss_rel <= TRAIN_LOSS_TOL, f"block step loss rel err {loss_rel:.3e} > {TRAIN_LOSS_TOL}")
+    require(gn_rel <= TRAIN_GRAD_NORM_TOL, f"block step grad-norm rel err {gn_rel:.3e} > {TRAIN_GRAD_NORM_TOL}")
+
+    batches = ctx["batches"]
+    noise_gen = torch.Generator(device=device).manual_seed(ctx["seed"] + 4)
+    TR.train_step(net, procs, opt, *batches[0], generator=noise_gen)  # warm-up
+    torch.cuda.synchronize()
+    names = ("corrupt", "forward", "backward", "optimizer")
+    reset_launch_counts()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+
+        def mark(_name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        t0 = time.perf_counter()
+        loss = TR.train_step(net, procs, opt, *batches[1 + i], generator=noise_gen, mark=mark)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        total = marks[0].elapsed_time(marks[-1])
+        print(f"[block step] step {i}: loss {float(loss):.6f} | " + ", ".join(f"{n} {m:.3f} ms" for n, m in zip(names, ms))
+              + f", step {total:.3f} ms (host {wall:.3f} ms) | {card}")
+        require(bool(torch.isfinite(loss)), f"block step {i}: loss {float(loss)}")
+        steps.append(total)
+    used = {k: v for k, v in launch_counts().items() if v}
+    require(not used, f"block steps launched {used}")
+    mean_ms = sum(steps) / TRAIN_STEPS
+    split = device_ms_by_kernel(lambda: TR.train_step(net, procs, opt, *batches[1], generator=noise_gen), (), 1)
+    print(f"[block step] {1e3 / mean_ms:.4f} steps/s (CUDA events, mean of {TRAIN_STEPS} steps {mean_ms:.3f} ms); "
+          f"all device work of one step {fmt_ms(split['all'])}; kernels launched {used} | {card}")
+
+
+def phase_reference_chain(seed, device, card):
+    """Phase 14: the reference set through Chain at full width, kernel path
+    against the plain path."""
+    import torch
+
+    from dasp_tpu_torch.modules import (Chain, Compressor, Distortion, Gain, ParametricEQ, StereoBus,
+                                        StereoPanner, StereoWidener)
+    from dasp_tpu_torch.utils import multi_resolution_stft_loss
+
+    tracks_n = 4
+
+    def console(eq, comp):
+        chain = Chain([Distortion(SR), ParametricEQ(SR, filter_method=eq), Compressor(SR, smoother=comp),
+                       StereoWidener(SR), Gain(SR)])
+        return StereoPanner(SR), StereoBus(SR, tracks_n), chain
+
+    kernel, plain = console("pallas", "exact_pallas"), console("exact", "exact")
+    n_params = 2 * tracks_n + kernel[2].num_params
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    tracks = 0.25 * torch.randn((BS, tracks_n, T), generator=gen, device=device)
+    p = torch.rand((BS, n_params), generator=gen, device=device)
+    target = tracks.mean(dim=1, keepdim=True).expand(BS, 2, T)
+    print(f"[chain] {tracks_n} mono tracks of {T} samples at bs {BS}: StereoPanner per track, "
+          f"StereoBus({tracks_n}), Chain of {len(kernel[2].processors)} from one ({BS}, {n_params}) tensor")
+
+    def mix(procs, q):
+        panner, bus, chain = procs
+        panned = panner.process_normalized(tracks.reshape(BS * tracks_n, 1, T),
+                                           q[:, :tracks_n].reshape(BS * tracks_n, 1), clip_params=True)
+        panned = panned.reshape(BS, tracks_n, 2, T).transpose(1, 2)  # (BS, 2, tracks, T)
+        y = bus.process_normalized(panned, q[:, tracks_n: 2 * tracks_n], clip_params=True)
+        return chain.process_normalized(y, q[:, 2 * tracks_n:], clip_params=True)
+
+    def grad(procs):
+        q = p.clone().requires_grad_()
+        y = mix(procs, q)
+        multi_resolution_stft_loss(y, target).backward()
+        return y.detach(), q.grad
+
+    with torch.no_grad():
+        mix(kernel, p)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        y_k = mix(kernel, p)
+    _, g_k = grad(kernel)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want = {"sosfilt_cascade": 1, "sosfilt_cascade_save_all": 1, "sosfilt_cascade_adjoint": 1, "ballistics": 2,
+            "ballistics_bwd": 1}
+    print(f"[chain] launches, one render and one forward + backward: {launches}")
+    require(launches == want, f"chain launches {launches}, expected {want}")
+    require(tuple(y_k.shape) == (BS, 2, T) and bool(torch.isfinite(y_k).all()), "chain: bad output")
+    require(bool(torch.isfinite(g_k).all()), "chain: non-finite gradient")
+
+    with torch.no_grad():
+        render_ms = cuda_ms(lambda: mix(kernel, p), 3)
+    grad_ms = cuda_ms(lambda: grad(kernel), 3)
+    t0 = time.perf_counter()
+    y_p, g_p = grad(plain)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    peak = float(y_p.abs().max())
+    diff = float((y_k - y_p).abs().max())
+    tol = 2 * A_BOUND * peak
+    g_rel = float((g_k - g_p).norm() / g_p.norm())
+    g_leaf = float((g_k - g_p).abs().max() / g_p.abs().max())
+    print(f"[chain] kernel path vs plain path (EQ 'exact', compressor 'exact'; {plain_s:.1f} s host clock): output "
+          f"max abs diff {diff:.3e} (tolerance {tol:.3e} = 2 x {A_BOUND} x peak {peak:.3f}); parameter gradient "
+          f"{g_rel:.3e} of its norm (tolerance {TRAIN_GRAD_NORM_TOL}), max element {g_leaf:.3e} of the largest")
+    print(f"[chain] render {render_ms:.3f} ms, forward + MR-STFT loss + backward {grad_ms:.3f} ms (CUDA events, "
+          f"mean of 3) | {card}")
+    require(diff <= tol, f"chain output differs from the plain path by {diff:.3e} > {tol:.3e}")
+    require(g_rel <= TRAIN_GRAD_NORM_TOL, f"chain gradient differs from the plain path by {g_rel:.3e}")
+
+
 def time_frac_delay(tree, seed, device, card):
     """C-fwd and C-bwd (without and with dx) of the package imported from
     ``tree`` on phases 8-9's operands made from ``seed``: a call by CUDA
@@ -1470,12 +1834,15 @@ def main() -> int:
     phase_slice(args.seed, device, card)
     res_adj = phase_adjoint_a(rng, device)
     res_bb = phase_ballistics_bwd(rng, device)
-    launches = phase_training(args.seed, device, card)
+    launches, train_ctx = phase_training(args.seed, device, card)
     configs = frac_delay_configs(rng, device)
     res_c = phase_frac_delay_fwd(configs, device, card)
     res_cb = phase_frac_delay_bwd(configs, device, card)
     launches.update({k: v for k, v in phase_blind(args.seed, device, card).items() if k.startswith("frac_delay")})
     phase_fsm(rng, device, card)
+    phase_block(rng, device, card)
+    phase_block_step(train_ctx, device, card)
+    phase_reference_chain(args.seed, device, card)
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [

@@ -1,21 +1,24 @@
 """Differentiable audio effects as plain functions on (bs, ch, T) tensors.
 
-PyTorch counterpart of the parts of ``dasp_tpu/functional.py`` that the
-style-transfer render and blind estimation of the delay family run through:
-``gain``, ``parametric_eq``, ``compressor``, ``noise_shaped_reverberation``,
-``modulated_delay`` and ``pitch_shift``. Parameters are tensors of shape
-(bs,) (or Python scalars); gradients flow to them and to the audio by
-autograd, and through the CUDA kernels by their backward kernels.
+PyTorch counterpart of the parts of ``dasp_tpu/functional.py`` ported so
+far: ``gain``, ``distortion``, ``parametric_eq``, ``compressor``,
+``noise_shaped_reverberation``, ``stereo_bus``, ``stereo_widener``,
+``stereo_panner``, ``modulated_delay`` and ``pitch_shift``. Parameters are
+tensors of shape (bs,) (or Python scalars); gradients flow to them and to
+the audio by autograd, and through the CUDA kernels by their backward
+kernels.
 
 Option strings keep the JAX package's spelling so that a configuration
 means the same in both packages. ``filter_method="pallas"``,
 ``smoother="pallas"``, ``smoother="exact_pallas"`` and ``adjoint="pallas"``
 select the hand-written CUDA kernels here (on a CPU tensor, their plain
-PyTorch versions). ``filter_method="exact"``, ``smoother="exact"`` and
-``adjoint="ad"`` run the plain versions on any device. ``"fsm"``, the
-default of ``parametric_eq`` and ``compressor`` as in the JAX package, is
-the reference's frequency-sampling approximation on ``torch.fft``. Other
-options raise ``ValueError``.
+PyTorch versions). ``filter_method="exact"`` (an associative scan over
+time), ``filter_method="block"`` and ``smoother="block"`` (the block-state
+formulation: batched matmuls, cuBLAS on the card, and a scan over blocks),
+``smoother="exact"`` and ``adjoint="ad"`` are plain PyTorch on any device.
+``"fsm"``, the default of ``parametric_eq`` and ``compressor`` as in the
+JAX package, is the reference's frequency-sampling approximation on
+``torch.fft``. Other options raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -33,12 +36,14 @@ from .ops.fft_filter import fsm_onepole_step_response, lfilter_via_fsm, sosfilt_
 from .ops.filterbank import octave_band_filterbank
 from .ops.fir import fft_conv_causal, fft_correlate_valid
 from .ops.frac_delay_kernel import frac_delay_pallas
-from .ops.iir import ballistics_smooth, onepole_ba
-from .ops.iir_kernel import lfilter1_pallas, sosfilt_pallas, sosfilt_plain
+from .ops.iir import ballistics_smooth, lfilter1_blockmat, onepole_ba, sosfilt_blockmat, sosfilt_exact
+from .ops.iir_kernel import lfilter1_pallas, sosfilt_pallas
 
 __all__ = [
     "db_to_linear",
     "gain",
+    "stereo_bus",
+    "distortion",
     "parametric_eq",
     "parametric_eq_sos",
     "static_gain_computer",
@@ -46,6 +51,8 @@ __all__ = [
     "noise_shaped_reverberation",
     "noise_shaped_ir",
     "spectral_band_noise",
+    "stereo_widener",
+    "stereo_panner",
     "modulated_delay",
     "pitch_shift_window_samples",
     "pitch_shift",
@@ -79,6 +86,42 @@ def gain(x: torch.Tensor, sample_rate: int, gain_db) -> torch.Tensor:
     """
     gain_db = _param(gain_db, x.shape[0], x.dtype, x.device)
     return x * db_to_linear(gain_db)
+
+
+def stereo_bus(x: torch.Tensor, sample_rate: int, send_db) -> torch.Tensor:
+    """Sum a stereo multitrack to a stereo bus with per-track send levels.
+
+    Args:
+        x: tracks, (bs, 2, tracks, T). sample_rate: unused.
+        send_db: per-track send levels in dB, (bs, tracks) or (bs, tracks, 1).
+
+    Returns:
+        The stereo bus, (bs, 2, T).
+    """
+    bs, chs, tracks, _ = x.shape
+    if chs != 2:
+        raise ValueError(f"stereo_bus needs input of shape (bs, 2, tracks, T), got {tuple(x.shape)}")
+    send = torch.as_tensor(send_db, dtype=x.dtype, device=x.device).reshape(bs, 1, tracks, 1)
+    return torch.sum(x * db_to_linear(send), dim=2)
+
+
+def distortion(x: torch.Tensor, sample_rate: int, drive_db) -> torch.Tensor:
+    """Soft-clipping distortion, tanh(x * 10^(drive / 20)).
+
+    Args:
+        x: (bs, chs, T). sample_rate: unused.
+        drive_db: drive in dB: a scalar, (bs,) for every channel of an item
+            (also on multichannel input), or (bs, chs) per channel.
+    """
+    bs, chs, _ = x.shape
+    drive_db = torch.as_tensor(drive_db, dtype=x.dtype, device=x.device)
+    if drive_db.ndim == 0:
+        drive_db = drive_db.expand(bs, 1, 1)
+    elif drive_db.numel() == bs:
+        drive_db = drive_db.reshape(bs, 1, 1)
+    else:
+        drive_db = drive_db.reshape(bs, chs, 1)
+    return torch.tanh(x * db_to_linear(drive_db))
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +163,10 @@ def parametric_eq(
         *_gain_db / *_cutoff_freq / *_q_factor: shape (bs,) each.
         filter_method: "fsm" (the reference's frequency-sampling
             approximation, on torch.fft), "pallas" (the CUDA biquad-cascade
-            kernel; its plain version on a CPU tensor) or "exact" (the plain
-            block-state version on any device), all differentiable. The JAX
-            package's "block", "coupled" and callable methods are not
-            ported yet and raise.
+            kernel; its plain version on a CPU tensor), "exact" (an
+            associative scan over time) or "block" (the block-state
+            formulation), all differentiable. The JAX package's "coupled"
+            and callable methods are not ported yet and raise.
     """
     bs = x.shape[0]
     sos = parametric_eq_sos(
@@ -156,13 +199,15 @@ def _apply_sos(sos, x, filter_method):
     if filter_method == "pallas":
         return sosfilt_pallas(sos, x)
     if filter_method == "exact":
-        return sosfilt_plain(sos, x)
+        return sosfilt_exact(sos, x)
+    if filter_method == "block":
+        return sosfilt_blockmat(sos, x)
     if filter_method == "fsm":
         return sosfilt_via_fsm(sos, x)
-    if filter_method in ("block", "coupled"):
-        raise _not_ported(f"filter_method={filter_method!r}", "items 3 and 5")
+    if filter_method == "coupled":
+        raise _not_ported(f"filter_method={filter_method!r}", "item 5")
     raise ValueError(
-        f"Unknown filter_method: {filter_method!r}. Expected 'fsm', 'pallas' or 'exact'."
+        f"Unknown filter_method: {filter_method!r}. Expected 'fsm', 'pallas', 'exact' or 'block'."
     )
 
 
@@ -217,11 +262,14 @@ def _smooth_gain(g_c, alpha_a, alpha_r, smoother):
     "fsm" (attack-only one-pole by the reference's frequency-sampling
     approximation), "exact_pallas" (true attack/release ballistics, CUDA
     kernel), "pallas" (attack-only one-pole through the CUDA biquad-cascade
-    kernel) or "exact" (true ballistics, plain loop)."""
+    kernel), "block" (attack-only one-pole by the block-state formulation)
+    or "exact" (true ballistics, plain loop)."""
     if smoother == "exact_pallas":
         return ballistics_pallas(g_c, alpha_a, alpha_r)
-    if smoother in ("pallas", "fsm"):
+    if smoother in ("pallas", "block", "fsm"):
         b, a = onepole_ba(alpha_a.reshape(g_c.shape[0], 1).to(g_c.dtype))
+        if smoother == "block":
+            return lfilter1_blockmat(g_c, b, a)
         if smoother == "pallas":
             return lfilter1_pallas(g_c, b, a)
         # DC split: the gain curve's large mean (tens of dB) rounded through
@@ -234,10 +282,10 @@ def _smooth_gain(g_c, alpha_a, alpha_r, smoother):
         return lfilter_via_fsm(g_c - mean, b, a) + mean * step
     if smoother == "exact":
         return ballistics_smooth(g_c, alpha_a, alpha_r, mode="exact")
-    if smoother in ("block", "attack_only", "parallel"):
-        raise _not_ported(f"smoother={smoother!r}", "items 3 and 5")
+    if smoother in ("attack_only", "parallel"):
+        raise _not_ported(f"smoother={smoother!r}", "item 5")
     raise ValueError(
-        f"Unknown smoother: {smoother!r}. Expected 'fsm', 'exact_pallas', 'pallas' or 'exact'."
+        f"Unknown smoother: {smoother!r}. Expected 'fsm', 'exact_pallas', 'pallas', 'block' or 'exact'."
     )
 
 
@@ -264,10 +312,9 @@ def compressor(
             makeup_gain_db: shape (bs,) each.
         eps: floor of the level detector.
         lookahead_samples: delay the audio against the gain curve.
-        smoother: "fsm", "exact_pallas", "pallas" or "exact" (see
-            :func:`_smooth_gain`). The JAX package's "block",
-            "attack_only", "parallel" and callable smoothers are not
-            ported yet and raise.
+        smoother: "fsm", "exact_pallas", "pallas", "block" or "exact"
+            (see :func:`_smooth_gain`). The JAX package's "attack_only",
+            "parallel" and callable smoothers are not ported yet and raise.
     """
     bs = x.shape[0]
     dtype, device = x.dtype, x.device
@@ -459,6 +506,54 @@ def noise_shaped_ir(
     env = torch.exp(-decays * t.reshape(1, 1, 1, -1))
     wn_filt = wn_filt * env * band_gains.reshape(bs, 1, num_bands, 1)
     return torch.mean(wn_filt, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# stereo field
+# ---------------------------------------------------------------------------
+
+
+def stereo_widener(x: torch.Tensor, sample_rate: float, width) -> torch.Tensor:
+    """Stereo widener by mid/side processing.
+
+    Args:
+        x: stereo audio, (bs, 2, T). sample_rate: unused.
+        width: on (0, 1), 0.5 unchanged, 1 side only: a scalar, (bs,) or
+            (bs, 1).
+    """
+    bs, chs, _ = x.shape
+    if chs != 2:
+        raise ValueError(f"stereo_widener needs input of shape (bs, 2, T), got {tuple(x.shape)}")
+    width = torch.as_tensor(width, dtype=x.dtype, device=x.device)
+    width = width.expand(bs, 1) if width.ndim == 0 else width.reshape(bs, 1)
+
+    sqrt2 = math.sqrt(2.0)
+    mid = (x[..., 0, :] + x[..., 1, :]) / sqrt2
+    side = (x[..., 0, :] - x[..., 1, :]) / sqrt2
+    mid = mid * (2.0 * (1.0 - width))
+    side = side * (2.0 * width)
+    return torch.stack(((mid + side) / sqrt2, (mid - side) / sqrt2), dim=-2)
+
+
+def stereo_panner(x: torch.Tensor, sample_rate: float, pan) -> torch.Tensor:
+    """Pan mono tracks across the stereo field by the constant-power law.
+
+    Args:
+        x: mono tracks, (bs, tracks, T). sample_rate: unused.
+        pan: on (0, 1) per track (0 left, 0.5 centre, 1 right),
+            (bs, tracks).
+
+    Returns:
+        Panned tracks, (bs, 2, tracks, T): the JAX package's layout (the
+        reference's code, not its docstring).
+    """
+    bs, tracks, _ = x.shape
+    pan = torch.as_tensor(pan, dtype=x.dtype, device=x.device).reshape(bs, tracks)
+    theta = pan * (math.pi / 2.0)
+    left = torch.sqrt(((math.pi / 2.0) - theta) * (2.0 / math.pi) * torch.cos(theta))
+    right = torch.sqrt(theta * (2.0 / math.pi) * torch.sin(theta))
+    gains = torch.stack([left, right], dim=1)[..., None]  # (bs, 2, tracks, 1)
+    return x[:, None] * gains
 
 
 # ---------------------------------------------------------------------------

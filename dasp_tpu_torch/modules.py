@@ -1,23 +1,25 @@
 """Processor layer: normalized-parameter dispatch for neural control.
 
-PyTorch counterpart of the parts of ``dasp_tpu/modules.py`` that the
-style-transfer render and blind estimation of the delay family run
-through. A ``Processor`` owns a parameter-range table and turns a
-``(batch, num_params)`` tensor of normalized (0, 1) parameters, e.g. the
-sigmoid output of a network, into keyword arguments for its functional
-effect.
+PyTorch counterpart of the parts of ``dasp_tpu/modules.py`` ported so far:
+``Processor``, ``Chain`` and the processors below. A ``Processor`` owns a
+parameter-range table and turns a ``(batch, num_params)`` tensor of
+normalized (0, 1) parameters, e.g. the sigmoid output of a network, into
+keyword arguments for its functional effect. Each instance records its
+constructor arguments in ``_init_spec`` as the JAX package's does.
 
 PyTorch runs every call eagerly, so the out-of-range check of
 ``process_normalized`` always runs unless ``clip_params=True`` (the JAX
 package skips it under tracing). The check reads the values back to the
 host, which waits for a GPU; the render path passes ``clip_params=True``.
 
-``Chain`` and the other processors are not ported yet (see ROADMAP.md).
+The other processors of the JAX package are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,10 +29,15 @@ __all__ = [
     "normalize",
     "denormalize",
     "Processor",
+    "Chain",
     "Gain",
+    "Distortion",
     "ParametricEQ",
     "Compressor",
     "NoiseShapedReverb",
+    "StereoWidener",
+    "StereoPanner",
+    "StereoBus",
     "Chorus",
     "Flanger",
     "PitchShift",
@@ -47,15 +54,58 @@ def normalize(val, min_val, max_val):
     return (val - min_val) / (max_val - min_val)
 
 
+def _snapshot_arg(v):
+    """Freeze a constructor argument for ``_init_spec``: lists and tuples
+    become tuples element by element and one-shot iterators are
+    materialized, so the spec stays what ``__init__`` consumed; scalars,
+    strings, tensors and processors pass by reference."""
+    if isinstance(v, (str, bytes)) or hasattr(v, "shape"):
+        return v
+    if isinstance(v, dict):
+        return {k: _snapshot_arg(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return tuple(_snapshot_arg(x) for x in v)
+    if hasattr(v, "__next__"):
+        return tuple(v)
+    return v
+
+
 class Processor:
     """Base class: named parameter ranges + normalized-tensor dispatch.
 
     Subclasses set ``sample_rate``, ``process_fn`` and ``param_ranges``.
+    ``stochastic`` marks processors whose effect draws noise (they take
+    ``generator=`` or ``noise=``); ``consumes_kwargs`` names the side
+    inputs that :class:`Chain` forwards to the processor.
     """
 
     sample_rate: int
     process_fn: Callable
     param_ranges: Dict[str, Tuple[float, float]]
+    stochastic: bool = False
+    consumes_kwargs: Tuple[str, ...] = ()
+
+    def __init__(self):
+        pass
+
+    def __init_subclass__(cls, **kw):
+        """Record each instance's constructor arguments as ``_init_spec =
+        (class name, args, kwargs)``. The most-derived ``__init__`` runs
+        first and records; a ``super().__init__()`` chain never overwrites
+        it."""
+        super().__init_subclass__(**kw)
+        if "__init__" in cls.__dict__:
+            orig = cls.__dict__["__init__"]
+
+            @functools.wraps(orig)
+            def wrapped(self, *a, __orig=orig, **k):
+                if not hasattr(self, "_init_spec"):
+                    a = tuple(_snapshot_arg(v) for v in a)
+                    k = {kk: _snapshot_arg(v) for kk, v in k.items()}
+                    self._init_spec = (type(self).__name__, a, dict(k))
+                __orig(self, *a, **k)
+
+            cls.__init__ = wrapped
 
     @property
     def num_params(self) -> int:
@@ -84,6 +134,11 @@ class Processor:
         param_dict = self.extract_param_dict(param_tensor)
         denorm = self.denormalize_param_dict(param_dict, validate=not clip_params)
         return self.process_fn(x, self.sample_rate, **denorm, **kwargs)
+
+    def process(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        """Raw passthrough to the functional effect (denormalized
+        parameters)."""
+        return self.process_fn(x, *args, **kwargs)
 
     def extract_param_dict(self, param_tensor: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Split a (bs, num_params) tensor into named columns."""
@@ -117,6 +172,73 @@ def _with_default(fn, key, value):
     return lambda x, *a, **kw: fn(x, *a, **{key: value, **kw})
 
 
+class Chain(Processor):
+    """Serial composition of processors driven by ONE parameter tensor: a
+    network emits ``(bs, sum(num_params))`` and the chain gives each
+    processor its consecutive group of columns, in order.
+
+    Noise: where the JAX package derives each stochastic member's key by
+    ``fold_in(key, i)``, here the stochastic members draw, in chain order,
+    from the one ``generator=`` passed in; each advances it by the draws it
+    makes, so a call is deterministic for a given generator state, a
+    parameter added to or a processor without noise inserted anywhere
+    never changes another member's noise, and nothing is read back from
+    the device. ``noise=`` (deterministic injection) goes to every member
+    that names it in ``consumes_kwargs``, as in the JAX package.
+
+    Example::
+
+        chain = Chain([ParametricEQ(sr), Compressor(sr), NoiseShapedReverb(sr), Gain(sr)])
+        y = chain.process_normalized(x, p, clip_params=True, generator=gen)  # p: (bs, 50)
+    """
+
+    def __init__(self, processors: Sequence[Processor]):
+        super().__init__()
+        if not processors:
+            raise ValueError("Chain requires at least one processor.")
+        self.processors = list(processors)
+        self.sample_rate = self.processors[0].sample_rate
+        self.stochastic = any(p.stochastic for p in self.processors)
+        self.param_ranges = {
+            f"p{i}.{name}": rng
+            for i, p in enumerate(self.processors)
+            for name, rng in p.param_ranges.items()
+        }
+
+    def process_normalized(
+        self,
+        x: torch.Tensor,
+        param_tensor: torch.Tensor,
+        clip_params: bool = False,
+        generator: Optional[torch.Generator] = None,
+        **kwargs,
+    ) -> torch.Tensor:
+        """Run every processor in turn on its columns of ``param_tensor``.
+        ``generator`` goes to the stochastic members; each named side input
+        in ``kwargs`` (``noise=``) goes to the members that declare it in
+        ``consumes_kwargs``, and no other member sees it."""
+        if param_tensor.shape[1] != self.num_params:
+            raise ValueError(
+                f"Parameter tensor has {param_tensor.shape[1]} parameters, "
+                f"but processor has {self.num_params} parameters."
+            )
+        if self.stochastic and generator is None and "noise" not in kwargs:
+            raise ValueError("Chain contains a stochastic processor: pass generator= (or noise=).")
+        y = x
+        col = 0
+        for p in self.processors:
+            cols = param_tensor[:, col : col + p.num_params]
+            col += p.num_params
+            kw = {name: kwargs[name] for name in p.consumes_kwargs if name in kwargs}
+            if p.stochastic and generator is not None:
+                kw["generator"] = generator
+            y = p.process_normalized(y, cols, clip_params=clip_params, **kw)
+        return y
+
+    def process(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        raise NotImplementedError("Chain has no single functional form; use process_normalized.")
+
+
 class Gain(Processor):
     """Gain in dB."""
 
@@ -124,6 +246,15 @@ class Gain(Processor):
         self.sample_rate = sample_rate
         self.process_fn = F.gain
         self.param_ranges = {"gain_db": (min_gain_db, max_gain_db)}
+
+
+class Distortion(Processor):
+    """Soft-clip distortion, ``drive_db`` in dB."""
+
+    def __init__(self, sample_rate: int, min_drive_db: float = 0.0, max_drive_db: float = 24.0):
+        self.sample_rate = sample_rate
+        self.process_fn = F.distortion
+        self.param_ranges = {"drive_db": (min_drive_db, max_drive_db)}
 
 
 class ParametricEQ(Processor):
@@ -203,6 +334,9 @@ class NoiseShapedReverb(Processor):
     ``generator=`` (a ``torch.Generator`` on the audio's device) or
     ``noise=``, since the effect is stochastic."""
 
+    stochastic = True
+    consumes_kwargs = ("noise",)
+
     def __init__(
         self,
         sample_rate: int,
@@ -229,6 +363,46 @@ class NoiseShapedReverb(Processor):
         ranges.update({f"band{i}_decay": (min_band_decay, max_band_decay) for i in range(12)})
         ranges["mix"] = (min_mix, max_mix)
         self.param_ranges = ranges
+
+
+class StereoWidener(Processor):
+    """Mid/side stereo widener (:func:`functional.stereo_widener`)."""
+
+    def __init__(self, sample_rate: int, min_width: float = 0.0, max_width: float = 1.0):
+        self.sample_rate = sample_rate
+        self.process_fn = F.stereo_widener
+        self.param_ranges = {"width": (min_width, max_width)}
+
+
+class StereoPanner(Processor):
+    """Constant-power stereo panner for a single mono track
+    (:func:`functional.stereo_panner`)."""
+
+    def __init__(self, sample_rate: int, min_pan: float = 0.0, max_pan: float = 1.0):
+        self.sample_rate = sample_rate
+        self.process_fn = F.stereo_panner
+        self.param_ranges = {"pan": (min_pan, max_pan)}
+
+
+class StereoBus(Processor):
+    """Stereo bus with per-track sends for a fixed number of tracks
+    (:func:`functional.stereo_bus`): one parameter ``track{i}_send_db`` per
+    track. ``process(x, sr, send_db)`` passes a (bs, tracks) send tensor
+    straight through."""
+
+    def __init__(self, sample_rate: int, num_tracks: int, min_send_db: float = -80.0,
+                 max_send_db: float = 12.0):
+        self.sample_rate = sample_rate
+        self.num_tracks = num_tracks
+        self.param_ranges = {f"track{i}_send_db": (min_send_db, max_send_db) for i in range(num_tracks)}
+
+        def _process(x, sr, *args, **sends):
+            if args:  # raw positional passthrough: stereo_bus(x, sr, send_db)
+                return F.stereo_bus(x, sr, *args, **sends)
+            send_db = torch.stack([sends[f"track{i}_send_db"] for i in range(num_tracks)], dim=-1)
+            return F.stereo_bus(x, sr, send_db)
+
+        self.process_fn = _process
 
 
 class _ModulatedDelay(Processor):

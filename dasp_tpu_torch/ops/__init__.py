@@ -1,10 +1,10 @@
 """Signal primitives: filter design, frequency-sampling (FSM) filtering, FFT
 convolution, IIR building blocks and the hand-written CUDA kernels with
-their backward. PyTorch counterpart of ``dasp_tpu/ops`` (the parts the
-style-transfer render runs through)."""
+their backward. PyTorch counterpart of ``dasp_tpu/ops`` (the parts ported
+so far: see ROADMAP.md)."""
 
 from .ballistics_kernel import ballistics_bwd_rows_plain, ballistics_pallas, ballistics_plain
-from .biquad import biquad
+from .biquad import biquad, one_pole_butter_highpass, one_pole_butter_lowpass, one_pole_filter
 from .fft_filter import (
     fft_freqz,
     fft_sosfreqz,
@@ -17,13 +17,18 @@ from .fft_filter import (
     sosfilt_via_fsm,
 )
 from .filterbank import NUM_OCTAVE_BANDS, OCTAVE_BAND_CENTERS, octave_band_filterbank
-from .fir import fft_conv_causal, fft_correlate_valid
+from .fir import fft_conv_causal, fft_conv_full, fft_correlate_valid, ola_conv_causal
 from .iir import (
     ar_impulse_response,
+    associative_scan,
     ballistics_smooth,
     block_toeplitz_operators,
     embed_first_order_sos,
+    lfilter1_blockmat,
+    lti_affine_scan,
     onepole_ba,
+    sosfilt_blockmat,
+    sosfilt_exact,
     stabilize_sos,
 )
 from .iir_kernel import (
@@ -36,6 +41,9 @@ from .iir_kernel import (
 
 __all__ = [
     "biquad",
+    "one_pole_butter_lowpass",
+    "one_pole_butter_highpass",
+    "one_pole_filter",
     "next_pow2",
     "next_fast_len",
     "fsm_fft_size",
@@ -48,14 +56,21 @@ __all__ = [
     "NUM_OCTAVE_BANDS",
     "OCTAVE_BAND_CENTERS",
     "octave_band_filterbank",
+    "fft_conv_full",
     "fft_conv_causal",
     "fft_correlate_valid",
+    "ola_conv_causal",
     "ar_impulse_response",
     "ballistics_smooth",
     "block_toeplitz_operators",
     "embed_first_order_sos",
     "onepole_ba",
     "stabilize_sos",
+    "associative_scan",
+    "lti_affine_scan",
+    "sosfilt_exact",
+    "sosfilt_blockmat",
+    "lfilter1_blockmat",
     "sosfilt_pallas",
     "sosfilt_plain",
     "sosfilt_rows_grad_plain",

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["biquad"]
+__all__ = ["biquad", "one_pole_butter_lowpass", "one_pole_butter_highpass", "one_pole_filter"]
 
 _BIQUAD_TYPES = (
     "high_shelf", "low_shelf", "peaking", "low_pass", "high_pass", "band_pass"
@@ -103,4 +103,62 @@ def biquad(
     # normalize so a0 == 1
     b = b.to(gain_db.dtype) / a0
     a = a.to(gain_db.dtype) / a0
+    return b, a
+
+
+def one_pole_butter_lowpass(f_c: torch.Tensor, sample_rate: float):
+    """Bilinear-transform design of a one-pole Butterworth lowpass.
+
+    Args:
+        f_c: cutoff frequency in Hz, shape (bs,) or (bs, 1).
+        sample_rate: audio sample rate (Hz).
+
+    Returns:
+        (b, a): coefficients, each (bs, 2), normalized so a0 == 1.
+    """
+    f_c = f_c.reshape(-1, 1)
+    w_c = torch.tan(2.0 * math.pi * (f_c / sample_rate) / 2.0)  # pre-warped analog frequency
+    a0 = 1.0 + w_c
+    b = torch.cat([w_c, w_c], dim=-1)
+    a = torch.cat([a0, w_c - 1.0], dim=-1)
+    return b / a0, a / a0
+
+
+def one_pole_butter_highpass(f_c: torch.Tensor, sample_rate: float):
+    """Bilinear-transform design of a one-pole Butterworth highpass,
+    H(s) = s / (s + wc): b = [1, -1] / (1 + wc), a = [1, (wc - 1) / (1 + wc)].
+
+    Args and returns as :func:`one_pole_butter_lowpass`.
+    """
+    f_c = f_c.reshape(-1, 1)
+    w_c = torch.tan(2.0 * math.pi * (f_c / sample_rate) / 2.0)
+    a0 = 1.0 + w_c
+    ones = torch.ones_like(w_c)
+    b = torch.cat([ones, -ones], dim=-1)
+    a = torch.cat([a0, w_c - 1.0], dim=-1)
+    return b / a0, a / a0
+
+
+def one_pole_filter(cutoff_hz: torch.Tensor, filter_type: str, sample_rate: float = 2.0):
+    """A simple one-pole highpass or lowpass.
+
+    Args:
+        cutoff_hz: cutoff (0..nyquist), shape (bs,).
+        filter_type: "highpass" or "lowpass".
+        sample_rate: sample rate of the input signal.
+
+    Returns:
+        (b, a): coefficients, each (bs, 2).
+    """
+    bs = cutoff_hz.shape[0]
+    cutoff_hz = cutoff_hz.reshape(bs, 1)
+    nyquist = sample_rate // 2
+    if filter_type == "highpass":
+        a1 = cutoff_hz / nyquist
+    elif filter_type == "lowpass":
+        a1 = -1.0 + (cutoff_hz / nyquist)
+    else:
+        raise ValueError(f"Invalid filter_type = {filter_type}.")
+    b = torch.cat([1.0 - torch.abs(a1), torch.zeros_like(a1)], dim=1)
+    a = torch.cat([torch.ones_like(a1), a1], dim=1)
     return b, a

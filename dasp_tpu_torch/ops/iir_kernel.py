@@ -44,12 +44,10 @@ the same in both packages; in this package they select the CUDA kernel.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from .. import _build
-from .iir import block_toeplitz_operators, embed_first_order_sos, stabilize_sos
+from .iir import _fold_rows, block_toeplitz_operators, embed_first_order_sos, stabilize_sos
 
 __all__ = [
     "sosfilt_pallas",
@@ -243,11 +241,8 @@ def sosfilt_rows_grad_plain(sos: torch.Tensor, x: torch.Tensor, grad_y: torch.Te
 def _rows(sos, x, stabilize):
     if stabilize:
         sos = stabilize_sos(sos)
-    bs, T = x.shape[0], x.shape[-1]
-    mid = math.prod(x.shape[1:-1])
-    rows = x.reshape(bs * mid, T)
     # per-batch sections are shared by the channels of that batch item
-    sos_rows = sos.repeat_interleave(mid, dim=0) if mid > 1 else sos
+    rows, sos_rows = _fold_rows(x, sos)
     return sos_rows, rows
 
 

@@ -96,10 +96,16 @@ def test_parametric_eq_pallas_matches_jax():
 
 
 def test_parametric_eq_exact_is_the_plain_version():
+    """"exact" is the plain associative-scan cascade, ``sosfilt_exact`` (as
+    in the JAX package); it agrees with the kernel's path within the
+    cascade's bound."""
     x = torch.randn(2, 2, 700)
     p = {k: torch.tensor(v) for k, v in normalized_params(D.ParametricEQ(SR), 2, seed=23).items()}
-    assert torch.equal(PF.parametric_eq(x, SR, **p, filter_method="exact"),
-                       PF.parametric_eq(x, SR, **p, filter_method="pallas"))
+    sos = PF.parametric_eq_sos(2, x.dtype, SR, *p.values())
+    y = PF.parametric_eq(x, SR, **p, filter_method="exact")
+    assert torch.equal(y, P.ops.sosfilt_exact(sos, x))
+    np.testing.assert_allclose(y.numpy(), PF.parametric_eq(x, SR, **p, filter_method="pallas").numpy(),
+                               atol=A_TOL)
 
 
 @pytest.mark.parametrize("smoother", ["exact_pallas", "pallas", "exact"])
@@ -214,7 +220,7 @@ def test_processor_checks_width_and_range():
 
 
 @pytest.mark.parametrize("make,option", [
-    (lambda: P.ParametricEQ(SR, filter_method="block"), "block"),
+    (lambda: P.ParametricEQ(SR, filter_method="coupled"), "coupled"),
     (lambda: P.Compressor(SR, smoother="parallel"), "parallel"),
 ])
 def test_unported_options_raise(make, option):

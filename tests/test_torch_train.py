@@ -150,8 +150,9 @@ def jax_step():
     return JaxStep()
 
 
-def torch_step(variables, x, rand, noise, dtype, torch_dtype=torch.float32):
-    net, procs, opt = TR.make_style_training(SR, smoke=True, dtype=dtype, device="cpu")
+def torch_step(variables, x, rand, noise, dtype, torch_dtype=torch.float32, eq="pallas", comp="exact_pallas"):
+    net, procs, opt = TR.make_style_training(SR, smoke=True, dtype=dtype, device="cpu",
+                                             eq_filter_method=eq, compressor_smoother=comp)
     net.load_state_dict(style_net_from_flax(variables, net), strict=True)
     net.to(torch_dtype)
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch_dtype)  # noqa: E731
@@ -231,6 +232,17 @@ def test_train_step_matches_jax_fp32(jax_step, record_property):
     d_j = norm({k: gj[k] - g64[k] for k in gj})
     print(f"distance to the float64 step: port {d_t / norm(g64):.3e}, JAX {d_j / norm(g64):.3e}")
     assert d_t <= 2 * d_j
+
+
+def test_train_step_matches_jax_block_fp32(record_property):
+    """The JAX bench's own configuration (bench.py): EQ "block" and
+    compressor "block" in both packages, under the fp32 bounds above."""
+    x, rand, noise = make_batch(seed=7)
+    fnet, variables = flax_variables()
+    jax_out = JaxStep(eq="block", comp="block")(fnet, variables, x, rand, noise)
+    torch_out = torch_step(variables, x, rand, noise, dtype=None, eq="block", comp="block")
+    bounds = dict(loss=1e-3, grad_diff=3e-2, grad_norm=1e-2, leaf=0.5, stats=5e-5, moved=0.02)
+    check_step(variables, jax_out, torch_out, bounds, record_property)
 
 
 def test_train_step_matches_jax_bf16(jax_step, record_property):
