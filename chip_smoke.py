@@ -2,8 +2,9 @@
 """Smoke run of dasp_tpu_torch on one CUDA GPU.
 
 Builds the hand-written CUDA kernels from ``dasp_tpu_torch/csrc`` and drives
-the port's style-transfer render and training step and its blind estimation
-of the pitch shifter and chorus at full width:
+the port's style-transfer render and training step, its blind estimation
+of the pitch shifter and chorus and its mastering-dynamics step at full
+width:
 
   phase 0  the card: name and power limit (nvidia-smi); fails without CUDA
   phase 1  build (nvcc, sm_90a) and load the kernels; build time
@@ -16,7 +17,9 @@ of the pitch shifter and chorus at full width:
            on compressor gain curves (with and without y0), the 100 / 100,
            5 / 100 and 20 / 20 ms time constants, a constant g, a step, ties
            g == y, long runs of g = 0 (bursts between silences below the
-           knee), the corruption's 262144 samples and a ragged T: bitwise
+           knee), a noise gate's curve (expander curve floored at its range,
+           10 ms hold, swapped coefficients) and an expander's curve, the
+           corruption's 262144 samples and a ragged T: bitwise
            equal to the plain loop, chunk-chained == one pass; the rounds'
            work, a call's and the kernel's device time for each
   phase 4  the slice: full-width StyleTransferNet (bf16 encoder convolutions,
@@ -91,7 +94,31 @@ of the pitch shifter and chorus at full width:
            MR-STFT loss and backward: exact launches of A (forward,
            save-all, adjoint) and B (forward, backward), output and
            gradient against the plain path (EQ "exact", compressor
-           "exact"); ms of the render and of forward + backward
+           "exact"); ms of the render and of forward + backward. Each
+           track first runs the mixing console's graphic EQ (GraphicEQ,
+           "coupled"), from 10 more columns a track
+  phase 15 the dynamics family at 8 x 2 x 131072, each effect at its
+           defaults: forward and the gradient of mean(y ** 2) against the
+           same function in float64 on the card (for the five users of
+           kernel B, expander, sidechain compressor, noise gate, de-esser
+           and limiter, its smoother the plain recursion in float64 by
+           ballistics_float64, itself held to the plain loop first: the
+           loop takes about 50 s a call on the card; the bitcrusher, whose
+           tick grid rounds in the input's dtype, against itself in fp32
+           on CPU copies); exact B launches (one forward,
+           one backward for each kernel user, none for the others); ms a
+           call, forward and forward + gradient. sosfilt_coupled on the
+           graphic EQ's 10 sections at +-12 dB against float64 scipy, TF32
+           off and on, beside the same formulation computed in fp32 (the
+           evidence for computing in float64)
+  phase 16 the mastering-dynamics step (examples/mastering.py's chain
+           without its dynamic EQ: TransientShaper, MultibandCompressor,
+           Exciter, Limiter; 29 logits, MR-STFT + 10 x MSE, Adam 2e-2) at bs
+           8 stereo clips of 131072 samples: 1 warm-up and 3 timed steps
+           split into target / forward + loss / backward / Adam by CUDA
+           events, exact B launches, finite loss and gradients, z changed;
+           one step's render, loss and gradient of z on the plain path
+           (limiter "exact") from the same z, batch and target
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -108,6 +135,7 @@ launches of the package in the checkout DIR (see :func:`time_ballistics`),
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -184,6 +212,29 @@ BLIND_STEP_LAUNCHES = {"frac_delay": 2, "frac_delay_bwd": 1}
 # paths sit one to four norms from float64 there.
 EFFECT_GRAD_FLOOR = 1e-2
 EFFECT_GRAD_FP32_TOL = 1e-2
+
+
+# phases 14-16: the kernel path (or fp32) against the plain path (or
+# float64): outputs within 2 x A_BOUND x max(1, peak), each gradient within
+# TRAIN_GRAD_NORM_TOL of its norm; sosfilt_coupled within this of
+# max(1, peak) of float64 scipy
+COUPLED_TOL = 1e-5
+MASTERING_PARAMS = 29
+# phase 15: the float64 reference ballistics against the plain loop over
+# this many samples
+PLAIN_CHECK_T = 16384
+# launches per mastering-dynamics step: the Limiter's forward in the target
+# render and in the render, its backward once
+MASTERING_STEP_LAUNCHES = {"ballistics": 2, "ballistics_bwd": 1}
+# phase 15: processor, its function, whether it runs kernel B at its defaults
+DYNAMICS = {
+    "Expander": ("expander", True), "SidechainCompressor": ("sidechain_compressor", True),
+    "NoiseGate": ("noise_gate", True), "DeEsser": ("de_esser", True), "Limiter": ("limiter", True),
+    "MultibandCompressor": ("multiband_compressor", False), "TransientShaper": ("transient_shaper", False),
+    "GraphicEQ": ("graphic_eq", False), "Exciter": ("exciter", False),
+    "AdvancedDistortion": ("advanced_distortion", False), "Bitcrusher": ("bitcrusher", False),
+    "Clipper": ("clipper", False),
+}
 
 
 # an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
@@ -406,23 +457,54 @@ def compressor_curve(rng, n, device):
     return g, aa.reshape(BS), ar.reshape(BS)
 
 
-def gated_curve(rng, n, device):
-    """A compressor's gain curve (BS, 1, n) with long runs of g = 0 exactly:
-    bursts of 0.25 * randn between silences at -66 dB, below the knee of a
-    -20 dB threshold (ratio 4, knee 6 dB), where static_gain_computer
-    returns 0. Bursts and silences last 12000 samples, from a random phase
-    per row."""
+def bursts(rng, n, device):
+    """(BS, 1, n): bursts of 0.25 * randn between silences at -66 dB, each
+    12000 samples long, from a random phase per row."""
     import numpy as np
     import torch
-
-    from dasp_tpu_torch import functional as F
 
     seg = 12000
     offset = rng.integers(0, 2 * seg, (BS, 1))
     gate = np.where(((np.arange(n)[None, :] + offset) // seg) % 2 == 0, 0.25, 5e-4)
-    x = torch.tensor((rng.standard_normal((BS, n)) * gate).astype(np.float32), device=device)
-    x_db = 20.0 * torch.log10(torch.clamp(x.abs(), min=1e-8))
-    return F.static_gain_computer(x_db, -20.0, 4.0, 6.0, "compressor")[:, None].contiguous()
+    return torch.tensor((rng.standard_normal((BS, n)) * gate).astype(np.float32), device=device)[:, None]
+
+
+def gated_curve(rng, n, device):
+    """A compressor's gain curve (BS, 1, n) with long runs of g = 0 exactly:
+    on bursts (see :func:`bursts`), below the knee of a -20 dB threshold
+    (ratio 4, knee 6 dB), where static_gain_computer returns 0."""
+    import torch
+
+    from dasp_tpu_torch import functional as F
+
+    x_db = 20.0 * torch.log10(torch.clamp(bursts(rng, n, device).abs(), min=1e-8))
+    return F.static_gain_computer(x_db, -20.0, 4.0, 6.0, "compressor").contiguous()
+
+
+def dynamics_curve(rng, n, device, name, hold_ms=10.0):
+    """The smoother's input (BS, 1, n) and (BS,) coefficients, in the order
+    the effect passes them, of a NoiseGate ("gate": the expander curve
+    floored at its range, a ``hold_ms`` hold, coefficients swapped; on
+    bursts, so that it opens and closes) or an Expander ("expander": on
+    0.25 * randn), from random parameters."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch.modules import Expander, NoiseGate
+
+    proc = NoiseGate(SR) if name == "gate" else Expander(SR)
+    p = {k: F._param(v, BS, torch.float32, device) for k, v in random_params(proc, rng, BS, device).items()}
+    if name == "gate":
+        x = bursts(rng, n, device)
+    else:
+        x = torch.tensor((rng.standard_normal((BS, 1, n)) * 0.25).astype(np.float32), device=device)
+    _, x_db, aa, ar = F._dynamics_common(x, SR, p["attack_ms"], p["release_ms"], 1e-8)
+    g = F.static_gain_computer(x_db, p["threshold_db"], p["ratio"], p["knee_db"], "expander")
+    if name == "gate":
+        g = F._hold_max(torch.maximum(g, -p["range_db"]), int(round(SR * hold_ms / 1e3)))
+        aa, ar = ar, aa
+    return g.contiguous(), aa.reshape(BS), ar.reshape(BS)
 
 
 def with_ties(g, aa, ar):
@@ -468,6 +550,9 @@ def phase_kernel_b(rng, device):
     # from a spawned generator, so that the later phases draw what they drew
     # before this case was added
     gated = gated_curve(rng.spawn(1)[0], T, device)
+    gate_rng = rng.spawn(1)[0]
+    gate = dynamics_curve(gate_rng, T, device, "gate")
+    expander = dynamics_curve(gate_rng, T, device, "expander")
     y0 = -12.0 * torch.rand((BS, 1), device=device)
     cases = [  # name, g, attack, release, y0
         ("compressor curve", g, aa, ar, None),
@@ -479,6 +564,8 @@ def phase_kernel_b(rng, device):
         ("step 0 / -12 / 0 dB", step, a5, a100, None),
         ("ties g == y every 7th sample", with_ties(g, a5, a100).to(device), a5, a100, None),
         ("long g = 0 runs (bursts, silences below the knee)", gated, aa, ar, None),
+        ("noise gate curve (range floor, 10 ms hold, swapped coefficients)", *gate, None),
+        ("expander curve", *expander, None),
         (f"T = {2 * T}, compressor curve", g2, aa2, ar2, None),
         (f"T = {2 * T}, 100 / 100 ms", g2, a100, a100, None),
         (f"ragged T = {T - RAGGED}", g[..., : T - RAGGED].contiguous(), aa, ar, None),
@@ -1678,10 +1765,11 @@ def phase_block_step(ctx, device, card):
 
 def phase_reference_chain(seed, device, card):
     """Phase 14: the reference set through Chain at full width, kernel path
-    against the plain path."""
+    against the plain path; each track through the mixing console's graphic
+    EQ first (examples/mixing_console.py:36-39)."""
     import torch
 
-    from dasp_tpu_torch.modules import (Chain, Compressor, Distortion, Gain, ParametricEQ, StereoBus,
+    from dasp_tpu_torch.modules import (Chain, Compressor, Distortion, Gain, GraphicEQ, ParametricEQ, StereoBus,
                                         StereoPanner, StereoWidener)
     from dasp_tpu_torch.utils import multi_resolution_stft_loss
 
@@ -1690,21 +1778,24 @@ def phase_reference_chain(seed, device, card):
     def console(eq, comp):
         chain = Chain([Distortion(SR), ParametricEQ(SR, filter_method=eq), Compressor(SR, smoother=comp),
                        StereoWidener(SR), Gain(SR)])
-        return StereoPanner(SR), StereoBus(SR, tracks_n), chain
+        return GraphicEQ(SR), StereoPanner(SR), StereoBus(SR, tracks_n), chain
 
     kernel, plain = console("pallas", "exact_pallas"), console("exact", "exact")
-    n_params = 2 * tracks_n + kernel[2].num_params
+    n_eq = kernel[0].num_params
+    n_params = (n_eq + 2) * tracks_n + kernel[3].num_params
     gen = torch.Generator(device=device).manual_seed(seed + 7)
     tracks = 0.25 * torch.randn((BS, tracks_n, T), generator=gen, device=device)
     p = torch.rand((BS, n_params), generator=gen, device=device)
     target = tracks.mean(dim=1, keepdim=True).expand(BS, 2, T)
-    print(f"[chain] {tracks_n} mono tracks of {T} samples at bs {BS}: StereoPanner per track, "
-          f"StereoBus({tracks_n}), Chain of {len(kernel[2].processors)} from one ({BS}, {n_params}) tensor")
+    print(f"[chain] {tracks_n} mono tracks of {T} samples at bs {BS}: GraphicEQ ('coupled') and StereoPanner per "
+          f"track, StereoBus({tracks_n}), Chain of {len(kernel[3].processors)} from one ({BS}, {n_params}) tensor")
 
     def mix(procs, q):
-        panner, bus, chain = procs
-        panned = panner.process_normalized(tracks.reshape(BS * tracks_n, 1, T),
-                                           q[:, :tracks_n].reshape(BS * tracks_n, 1), clip_params=True)
+        eq, panner, bus, chain = procs
+        flat = tracks.reshape(BS * tracks_n, 1, T)
+        flat = eq.process_normalized(flat, q[:, : n_eq * tracks_n].reshape(BS * tracks_n, n_eq), clip_params=True)
+        q = q[:, n_eq * tracks_n:]
+        panned = panner.process_normalized(flat, q[:, :tracks_n].reshape(BS * tracks_n, 1), clip_params=True)
         panned = panned.reshape(BS, tracks_n, 2, T).transpose(1, 2)  # (BS, 2, tracks, T)
         y = bus.process_normalized(panned, q[:, tracks_n: 2 * tracks_n], clip_params=True)
         return chain.process_normalized(y, q[:, 2 * tracks_n:], clip_params=True)
@@ -1750,6 +1841,295 @@ def phase_reference_chain(seed, device, card):
           f"mean of 3) | {card}")
     require(diff <= tol, f"chain output differs from the plain path by {diff:.3e} > {tol:.3e}")
     require(g_rel <= TRAIN_GRAD_NORM_TOL, f"chain gradient differs from the plain path by {g_rel:.3e}")
+
+
+def ballistics_float64(g, alpha_attack, alpha_release, max_iter: int = 64):
+    """Kernel B's branching recursion in g's dtype (float64) on g's device,
+    by iterating on its branch pattern: with the pattern held the recursion
+    is linear, one scan (``ops.onepole_varying``), and a pattern that its
+    own output reproduces gives the sequential recursion's output. It
+    starts from the attack-only pass and holds the pattern it found for
+    the gradient, as autograd through the plain loop does. Phase 15's
+    float64 reference for the kernel users, where the plain loop takes
+    about 50 s a call on the card."""
+    import torch
+
+    from dasp_tpu_torch.ops import onepole_varying
+
+    aa = torch.broadcast_to(torch.as_tensor(alpha_attack, dtype=g.dtype, device=g.device), g.shape)
+    ar = torch.broadcast_to(torch.as_tensor(alpha_release, dtype=g.dtype, device=g.device), g.shape)
+    with torch.no_grad():
+        y = onepole_varying(g, aa)
+        for _ in range(max_iter):
+            attack = g < torch.cat([torch.zeros_like(y[..., :1]), y[..., :-1]], dim=-1)
+            y_next = onepole_varying(g, torch.where(attack, aa, ar))
+            if torch.equal(y_next, y):
+                break
+            y = y_next
+        else:
+            raise PhaseError(f"ballistics_float64: no fixed point in {max_iter} iterations")
+    return onepole_varying(g, torch.where(attack, aa, ar))
+
+
+@contextlib.contextmanager
+def ballistics_replaced(fn):
+    """The effects' ``smoother="exact_pallas"`` evaluated by ``fn`` while
+    the block runs."""
+    from dasp_tpu_torch import functional as F
+
+    kernel = F.ballistics_pallas
+    F.ballistics_pallas = lambda g, aa, ar: fn(g, aa, ar)
+    try:
+        yield
+    finally:
+        F.ballistics_pallas = kernel
+
+
+def leaf_grads(fn, leaves, device, dtype, **options):
+    """``fn`` on copies of ``leaves`` (a dict: "x" first) moved to
+    ``device`` and ``dtype``: the output and the gradient of mean(y ** 2)
+    with respect to each leaf (None where none reached it)."""
+    import torch
+
+    ts = {k: v.detach().to(device=device, dtype=dtype).clone().requires_grad_() for k, v in leaves.items()}
+    y = fn(**ts, **options)
+    (y ** 2).mean().backward()
+    return y.detach(), {k: t.grad for k, t in ts.items()}
+
+
+def grad_norm_errors(got, truth):
+    """Each gradient's distance from its reference, of the reference's norm
+    (where the reference is not zero)."""
+    out = {}
+    for k, t in truth.items():
+        if t is None or not float(t.norm()) > 0:
+            continue
+        g = got[k].to(device=t.device, dtype=t.dtype) if got[k] is not None else 0 * t
+        out[k] = float((g - t).norm() / t.norm())
+    return out
+
+
+def phase_dynamics(seed, device, card):
+    """Phase 15: the twelve effects of the dynamics family at their defaults
+    at full width, fp32 on the card against float64 (see the module
+    docstring for the references), with exact launches; then
+    sosfilt_coupled against float64 scipy with TF32 off and on, and the
+    same formulation computed in fp32."""
+    import numpy as np
+    import scipy.signal
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch import modules as M
+    from dasp_tpu_torch.ops import ballistics_kernel as BK
+    from dasp_tpu_torch.ops import iir as I
+
+    # the float64 reference of the kernel users against the plain loop in
+    # float64 (on CPU copies) on a noise gate's and an expander's curves
+    check_rng = np.random.default_rng(seed + 8)
+    for curve in ("gate", "expander"):
+        gc, ac, rc = (t.double() for t in dynamics_curve(check_rng, PLAIN_CHECK_T, device, curve))
+        y_f = ballistics_float64(gc, ac.reshape(BS, 1, 1), rc.reshape(BS, 1, 1))
+        y_l = BK.ballistics_plain(gc.cpu(), ac.cpu(), rc.cpu())
+        err = float((y_f.cpu() - y_l).abs().max()) / max(1.0, float(y_l.abs().max()))
+        print(f"[dynamics] ballistics_float64 against the plain loop in float64, {curve} curve, {BS} x "
+              f"{PLAIN_CHECK_T}: {err:.3e} of max(1, peak)")
+        require(err <= 1e-9, f"ballistics_float64 {err:.3e} from the plain loop")
+
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    x = 0.25 * torch.randn((BS, 2, T), generator=gen, device=device)
+    key = 0.5 * torch.randn((BS, 1, T), generator=gen, device=device)
+    for name, (fname, b_user) in DYNAMICS.items():
+        proc = getattr(M, name)(SR)
+        p = 0.05 + 0.9 * torch.rand((BS, proc.num_params), generator=gen, device=device)
+        params = proc.denormalize_param_dict(proc.extract_param_dict(p))
+        if name == "GraphicEQ":
+            params = {"band_gains_db": torch.stack([params[f"band{i}_gain_db"] for i in range(10)], dim=-1)}
+        leaves = {"x": x, **params, **({"sidechain": key} if name == "SidechainCompressor" else {})}
+        effect = getattr(F, fname)
+
+        def fn(x, **kw):
+            return effect(x, SR, **kw)
+
+        reset_launch_counts()
+        y, g = leaf_grads(fn, leaves, device, torch.float32)
+        torch.cuda.synchronize()
+        used = {k: v for k, v in launch_counts().items() if v}
+        want = {"ballistics": 1, "ballistics_bwd": 1} if b_user else {}
+        require(used == want, f"{name}: launches {used}, expected {want}")
+        require(tuple(y.shape) == (BS, 2, T) and bool(torch.isfinite(y).all()), f"{name}: bad output")
+        require(all(v is None or bool(torch.isfinite(v).all()) for v in g.values()), f"{name}: non-finite gradient")
+
+        t0 = time.perf_counter()
+        if name == "Bitcrusher":
+            ref_name = "itself in fp32 on CPU copies"
+            y_r, g_r = leaf_grads(fn, leaves, "cpu", torch.float32)
+        elif b_user:
+            ref_name = "float64 on the card, the smoother by ballistics_float64"
+            with ballistics_replaced(ballistics_float64):
+                y_r, g_r = leaf_grads(fn, leaves, device, torch.float64)
+        else:
+            ref_name = "float64 on the card"
+            y_r, g_r = leaf_grads(fn, leaves, device, torch.float64)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        diff = (y.to(y_r.device, y_r.dtype) - y_r).abs()
+        if name == "Bitcrusher":
+            # a quantizer's rounding may flip by one step, mix / 2^(bit_depth - 1)
+            step = (params["mix"] / 2.0 ** (params["bit_depth"] - 1.0)).to(diff.device, diff.dtype).reshape(BS, 1, 1)
+            out_err = max(0.0, float((diff - step).max())) / max(1.0, float(y_r.abs().max()))
+        else:
+            out_err = float(diff.max()) / max(1.0, float(y_r.abs().max()))
+        g_err = grad_norm_errors(g, g_r)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fn(**leaves), 3)
+        grad_ms = cuda_ms(lambda: leaf_grads(fn, leaves, device, torch.float32), 2)
+        worst = max(g_err, key=g_err.get)
+        print(f"[dynamics {name}] launches {used}; against {ref_name} ({ref_s:.1f} s): output {out_err:.3e} of "
+              f"max(1, peak)" + (" beyond one quantization step" if name == "Bitcrusher" else "")
+              + f", gradients of their norms up to {g_err[worst]:.3e} (d{worst}); "
+              + ", ".join(f"d{k} {v:.2e}" for k, v in g_err.items())
+              + f" | forward {fwd_ms:.3f} ms, forward + gradient {grad_ms:.3f} ms a call | {card}")
+        require(out_err <= 2 * A_BOUND, f"{name}: output {out_err:.3e} from {ref_name}")
+        require(g_err[worst] <= TRAIN_GRAD_NORM_TOL, f"{name}: d{worst} {g_err[worst]:.3e} from {ref_name}")
+
+    # sosfilt_coupled on the graphic EQ's sections: +-12 dB, rows of +12 dB on every band
+    gains = 24.0 * torch.rand((BS, 10), generator=gen, device=device) - 12.0
+    gains[0] = 12.0
+    sos = F.graphic_eq_sos(BS, torch.float32, SR, gains, device=device)
+    sos_s = I.stabilize_sos(sos)
+    xs = x.contiguous()
+    t0 = time.perf_counter()
+    sos64 = sos_s.double().cpu().numpy()
+    x64 = xs.double().cpu().numpy()
+    ref = torch.tensor(np.stack([np.stack([scipy.signal.sosfilt(sos64[b], x64[b, c]) for c in range(2)])
+                                 for b in range(BS)]), device=device)
+    scale = max(1.0, float(ref.abs().max()))
+    print(f"[coupled] graphic EQ, {BS} x 2 x {T}, 10 sections at +-12 dB (31.5 Hz to 16 kHz); float64 scipy on the "
+          f"host in {time.perf_counter() - t0:.1f} s")
+
+    def fp32_formulation():
+        rows, sos_rows = I._fold_rows(xs, sos_s)
+        zi = rows.new_zeros((rows.shape[0], 10, 2))
+        return I._sosfilt_coupled_rows(sos_rows, rows, 128, zi)[0].reshape(xs.shape)
+
+    outs = {}
+    for label, f in (("float64 inside (sosfilt_coupled)", lambda: I.sosfilt_coupled(sos, xs)),
+                     ("fp32 inside", fp32_formulation)):
+        for tf32 in (False, True):
+            tf32_matmul(tf32)
+            try:
+                with torch.no_grad():
+                    outs[label, tf32] = f()
+                torch.cuda.synchronize()
+            finally:
+                tf32_matmul(False)
+            err = float((outs[label, tf32].double() - ref).abs().max()) / scale
+            print(f"[coupled] {label}, TF32 {'on' if tf32 else 'off'}: {err:.3e} of max(1, peak) from float64")
+            if label.startswith("float64"):
+                require(err <= COUPLED_TOL, f"sosfilt_coupled {err:.3e} from float64 > {COUPLED_TOL}")
+    require(torch.equal(outs["float64 inside (sosfilt_coupled)", False], outs["float64 inside (sosfilt_coupled)", True]),
+            "sosfilt_coupled changes with TF32")
+
+    def coupled_grad():
+        leaves = [t.clone().requires_grad_() for t in (sos, xs)]
+        (I.sosfilt_coupled(*leaves) ** 2).mean().backward()
+
+    with torch.no_grad():
+        fwd = lambda: I.sosfilt_coupled(sos, xs)  # noqa: E731
+        fwd_ms, fwd_dev = cuda_ms(fwd, 3), device_ms_by_kernel(fwd, (), 2)["all"]
+        f32_ms, f32_dev = cuda_ms(fp32_formulation, 3), device_ms_by_kernel(fp32_formulation, (), 2)["all"]
+    grad_ms, grad_dev = cuda_ms(coupled_grad, 2), device_ms_by_kernel(coupled_grad, (), 1)["all"]
+    print(f"[coupled time] float64 inside: forward {fwd_ms:.4f} ms a call, {fmt_ms(fwd_dev)} of device work; "
+          f"forward + gradient {grad_ms:.4f} ms a call, {fmt_ms(grad_dev)} of device work; fp32 inside: forward "
+          f"{f32_ms:.4f} ms a call, {fmt_ms(f32_dev)} of device work | {card}")
+
+
+def phase_mastering(seed, device, card):
+    """Phase 16: the mastering-dynamics step at full width (the slice's
+    path): 1 warm-up and 3 timed steps, launches, and one step's render,
+    loss and gradient against the plain path."""
+    import torch
+
+    from dasp_tpu_torch import train as TR
+
+    chain, z, opt = TR.make_mastering_dynamics(SR, bs=BS, device=device)
+    require(chain.num_params == MASTERING_PARAMS, f"{chain.num_params} parameters, expected {MASTERING_PARAMS}")
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    mixes = [0.25 * torch.randn((BS, 2, T), generator=gen, device=device) for _ in range(TRAIN_STEPS + 2)]
+    p_true = torch.clamp(0.5 + 0.25 * torch.randn((BS, chain.num_params), generator=gen, device=device), 0.05, 0.95)
+    print(f"[mastering] Chain([{', '.join(type(p).__name__ for p in chain.processors)}]), {chain.num_params} logits; "
+          f"bs {BS} stereo clips of {T} samples; MR-STFT + 10 x MSE, Adam 2e-2")
+
+    loss = TR.mastering_step(chain, z, opt, mixes[0], p_true)  # warm-up
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(loss)), f"mastering warm-up loss {float(loss)}")
+    z_start = z.detach().clone()
+    names = ("target", "forward", "backward", "optimizer")
+    reset_launch_counts()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+
+        def mark(_name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        t0 = time.perf_counter()
+        loss = TR.mastering_step(chain, z, opt, mixes[1 + i], p_true, mark=mark)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        total = marks[0].elapsed_time(marks[-1])
+        print(f"[mastering] step {i}: loss {float(loss):.6f} | " + ", ".join(f"{n} {m:.3f} ms" for n, m in zip(names, ms))
+              + f", step {total:.3f} ms (host {wall:.3f} ms) | {card}")
+        require(bool(torch.isfinite(loss)), f"mastering step {i}: loss {float(loss)}")
+        require(bool(torch.isfinite(z.grad).all()), f"mastering step {i}: non-finite gradient")
+        steps.append(total)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want = {k: TRAIN_STEPS * v for k, v in MASTERING_STEP_LAUNCHES.items()}
+    print(f"[mastering] launches during the {TRAIN_STEPS} steps: {launches}")
+    require(launches == want, f"mastering launches {launches}, expected {want}")
+    moved = float((z.detach() - z_start).abs().max())
+    require(moved > 0, "mastering: z did not change")
+    mean_ms = sum(steps) / TRAIN_STEPS
+    split = device_ms_by_kernel(lambda: TR.mastering_step(chain, z, opt, mixes[1], p_true),
+                                ("ballistics_kernel", "ballistics_bwd_kernel"), 1)
+    print(f"[mastering] {1e3 / mean_ms:.4f} steps/s (CUDA events, mean of {TRAIN_STEPS} steps {mean_ms:.3f} ms); z "
+          f"moved up to {moved:.3e}; one step's device work (profiler): all {fmt_ms(split['all'])}, B-fwd (2 "
+          f"launches) {fmt_ms(split['ballistics_kernel'])}, B-bwd {fmt_ms(split['ballistics_bwd_kernel'])} | {card}")
+
+    # one step's render, loss and gradient again on the plain path
+    mix = mixes[-1]
+    with torch.no_grad():
+        target = chain.process_normalized(mix, p_true, clip_params=True)
+
+    def grads(ch, dev):
+        zz = z.detach().to(dev).clone().requires_grad_()
+        y = ch.process_normalized(mix.to(dev), torch.sigmoid(zz), clip_params=True)
+        loss = TR.mastering_loss(ch, zz, mix.to(dev), target.to(dev))
+        loss.backward()
+        return y.detach(), float(loss.detach()), zz.grad
+
+    y_k, loss_k, g_k = grads(chain, device)
+    plain, _, _ = TR.make_mastering_dynamics(SR, bs=BS, device=device, limiter_smoother="exact")
+    t0 = time.perf_counter()
+    y_p, loss_p, g_p = grads(plain, device)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    peak = float(y_p.abs().max())
+    diff = float((y_k - y_p).abs().max())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    g_rel = float((g_k - g_p).norm() / g_p.norm())
+    print(f"[mastering] kernel path vs plain path (limiter 'exact', {plain_s:.1f} s host clock): output max abs "
+          f"diff {diff:.3e} (tolerance 2 x {A_BOUND} x peak {peak:.3f}); loss {loss_k:.6f} vs {loss_p:.6f}, rel "
+          f"err {loss_rel:.2e}; gradient of z {g_rel:.3e} of its norm")
+    require(diff <= 2 * A_BOUND * peak, f"mastering output differs from the plain path by {diff:.3e}")
+    require(loss_rel <= TRAIN_LOSS_TOL, f"mastering loss rel err {loss_rel:.3e} > {TRAIN_LOSS_TOL}")
+    require(g_rel <= TRAIN_GRAD_NORM_TOL, f"mastering gradient rel err {g_rel:.3e} > {TRAIN_GRAD_NORM_TOL}")
 
 
 def time_frac_delay(tree, seed, device, card):
@@ -1843,6 +2223,8 @@ def main() -> int:
     phase_block(rng, device, card)
     phase_block_step(train_ctx, device, card)
     phase_reference_chain(args.seed, device, card)
+    phase_dynamics(args.seed, device, card)
+    phase_mastering(args.seed, device, card)
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [

@@ -10,7 +10,11 @@ NoiseShapedReverb -> Gain, the MR-STFT loss (``utils``), the backward
 through the kernels and an Adam update; blind estimation of the delay
 family (``PitchShift``, ``Chorus``, ``Flanger``); the rest of the
 reference's effect set (``Distortion``, the stereo effects) and ``Chain``;
-and the exact IIR methods ``"exact"`` and ``"block"`` (``ops.iir``). On CPU tensors the
+the dynamics family (expander, sidechain compressor, noise gate, de-esser,
+limiter, multiband compressor, transient shaper) and the graphic EQ,
+exciter, advanced distortion, bitcrusher and clipper; and the exact IIR
+methods ``"exact"``, ``"block"`` and ``"coupled"`` and the scan smoothers
+(``ops.iir``). On CPU tensors the
 kernels' plain PyTorch versions run instead, so the package imports and
 runs without a GPU.
 
@@ -20,31 +24,55 @@ Layouts at the public functions are the JAX package's: audio is
 
 from . import functional, models, modules, ops, train, utils
 from .functional import (
+    advanced_distortion,
+    bitcrusher,
+    clipper,
     compressor,
+    de_esser,
     distortion,
+    exciter,
+    expander,
     gain,
+    graphic_eq,
+    limiter,
     modulated_delay,
+    multiband_compressor,
+    noise_gate,
     noise_shaped_reverberation,
     parametric_eq,
     pitch_shift,
+    sidechain_compressor,
     stereo_bus,
     stereo_panner,
     stereo_widener,
+    transient_shaper,
 )
 from .modules import (
+    AdvancedDistortion,
+    Bitcrusher,
     Chain,
     Chorus,
+    Clipper,
     Compressor,
+    DeEsser,
     Distortion,
+    Exciter,
+    Expander,
     Flanger,
     Gain,
+    GraphicEQ,
+    Limiter,
+    MultibandCompressor,
+    NoiseGate,
     NoiseShapedReverb,
     ParametricEQ,
     PitchShift,
     Processor,
+    SidechainCompressor,
     StereoBus,
     StereoPanner,
     StereoWidener,
+    TransientShaper,
 )
 
 __all__ = [
@@ -64,6 +92,18 @@ __all__ = [
     "noise_shaped_reverberation",
     "modulated_delay",
     "pitch_shift",
+    "advanced_distortion",
+    "graphic_eq",
+    "expander",
+    "sidechain_compressor",
+    "noise_gate",
+    "de_esser",
+    "bitcrusher",
+    "transient_shaper",
+    "exciter",
+    "clipper",
+    "limiter",
+    "multiband_compressor",
     "Processor",
     "Chain",
     "Gain",
@@ -77,4 +117,16 @@ __all__ = [
     "Chorus",
     "Flanger",
     "PitchShift",
+    "AdvancedDistortion",
+    "GraphicEQ",
+    "Expander",
+    "SidechainCompressor",
+    "NoiseGate",
+    "DeEsser",
+    "Bitcrusher",
+    "TransientShaper",
+    "Exciter",
+    "Clipper",
+    "Limiter",
+    "MultibandCompressor",
 ]

@@ -1,24 +1,30 @@
 """Differentiable audio effects as plain functions on (bs, ch, T) tensors.
 
 PyTorch counterpart of the parts of ``dasp_tpu/functional.py`` ported so
-far: ``gain``, ``distortion``, ``parametric_eq``, ``compressor``,
-``noise_shaped_reverberation``, ``stereo_bus``, ``stereo_widener``,
-``stereo_panner``, ``modulated_delay`` and ``pitch_shift``. Parameters are
-tensors of shape (bs,) (or Python scalars); gradients flow to them and to
-the audio by autograd, and through the CUDA kernels by their backward
-kernels.
+far: ``gain``, ``distortion``, ``advanced_distortion``, ``parametric_eq``,
+``graphic_eq``, ``compressor``, the dynamics family (``expander``,
+``sidechain_compressor``, ``noise_gate``, ``de_esser``, ``limiter``,
+``multiband_compressor``, ``transient_shaper``), ``exciter``,
+``bitcrusher``, ``clipper``, ``noise_shaped_reverberation``,
+``stereo_bus``, ``stereo_widener``, ``stereo_panner``, ``modulated_delay``
+and ``pitch_shift``. Parameters are tensors of shape (bs,) (or Python
+scalars); gradients flow to them and to the audio by autograd, and through
+the CUDA kernels by their backward kernels.
 
 Option strings keep the JAX package's spelling so that a configuration
 means the same in both packages. ``filter_method="pallas"``,
 ``smoother="pallas"``, ``smoother="exact_pallas"`` and ``adjoint="pallas"``
 select the hand-written CUDA kernels here (on a CPU tensor, their plain
 PyTorch versions). ``filter_method="exact"`` (an associative scan over
-time), ``filter_method="block"`` and ``smoother="block"`` (the block-state
-formulation: batched matmuls, cuBLAS on the card, and a scan over blocks),
-``smoother="exact"`` and ``adjoint="ad"`` are plain PyTorch on any device.
-``"fsm"``, the default of ``parametric_eq`` and ``compressor`` as in the
-JAX package, is the reference's frequency-sampling approximation on
-``torch.fft``. Other options raise ``ValueError``.
+time), ``"block"`` and ``"coupled"`` (the block-state formulations:
+batched matmuls, cuBLAS on the card, and a scan over blocks),
+``smoother="block"``, ``"parallel"``, ``"attack_only"`` and ``"exact"``, and
+``adjoint="ad"`` are plain PyTorch on any device. ``"fsm"``, the default of
+``parametric_eq`` and ``compressor`` as in the JAX package, is the
+reference's frequency-sampling approximation on ``torch.fft``. The JAX
+package's callable ``filter_method`` and ``smoother`` (the injection points
+of its sequence-sharded filters) are not ported and raise ``ValueError``,
+as do unknown options.
 """
 
 from __future__ import annotations
@@ -31,12 +37,30 @@ import torch.nn.functional as nnf
 from torch.utils.checkpoint import checkpoint
 
 from .ops.ballistics_kernel import ballistics_pallas
-from .ops.biquad import biquad
-from .ops.fft_filter import fsm_onepole_step_response, lfilter_via_fsm, sosfilt_via_fsm
+from .ops.biquad import biquad, one_pole_butter_highpass, one_pole_butter_lowpass
+from .ops.fft_filter import (
+    fft_sosfreqz,
+    fsm_fft_size,
+    fsm_onepole_step_response,
+    lfilter_via_fsm,
+    sosfilt_via_fsm,
+)
 from .ops.filterbank import octave_band_filterbank
 from .ops.fir import fft_conv_causal, fft_correlate_valid
 from .ops.frac_delay_kernel import frac_delay_pallas
-from .ops.iir import ballistics_smooth, lfilter1_blockmat, onepole_ba, sosfilt_blockmat, sosfilt_exact
+from .ops.iir import (
+    ballistics_smooth,
+    embed_first_order_sos,
+    lfilter1_blockmat,
+    lfilter1_exact,
+    onepole_ba,
+    onepole_exact,
+    peak_decay,
+    running_max,
+    sosfilt_blockmat,
+    sosfilt_coupled,
+    sosfilt_exact,
+)
 from .ops.iir_kernel import lfilter1_pallas, sosfilt_pallas
 
 __all__ = [
@@ -44,10 +68,26 @@ __all__ = [
     "gain",
     "stereo_bus",
     "distortion",
+    "advanced_distortion",
+    "GRAPHIC_EQ_BANDS",
+    "graphic_eq",
+    "graphic_eq_sos",
     "parametric_eq",
     "parametric_eq_sos",
     "static_gain_computer",
     "compressor",
+    "expander",
+    "sidechain_compressor",
+    "noise_gate",
+    "de_esser",
+    "transient_shaper",
+    "exciter_sos",
+    "exciter",
+    "bitcrusher",
+    "limiter",
+    "lr4_crossover_sos",
+    "multiband_compressor",
+    "clipper",
     "noise_shaped_reverberation",
     "noise_shaped_ir",
     "spectral_band_noise",
@@ -70,6 +110,11 @@ def _param(p, bs: int, dtype, device) -> torch.Tensor:
     if p.ndim == 0:
         return p.expand(bs, 1, 1)
     return p.reshape(bs, 1, 1)
+
+
+def _params(bs: int, dtype, device, *ps):
+    """:func:`_param` of each of ``ps``."""
+    return tuple(_param(p, bs, dtype, device) for p in ps)
 
 
 def db_to_linear(db: torch.Tensor) -> torch.Tensor:
@@ -164,9 +209,11 @@ def parametric_eq(
         filter_method: "fsm" (the reference's frequency-sampling
             approximation, on torch.fft), "pallas" (the CUDA biquad-cascade
             kernel; its plain version on a CPU tensor), "exact" (an
-            associative scan over time) or "block" (the block-state
-            formulation), all differentiable. The JAX package's "coupled"
-            and callable methods are not ported yet and raise.
+            associative scan over time), "block" (the block-state
+            formulation) or "coupled" (the block-state formulation on the
+            coupled realization, :func:`~dasp_tpu_torch.ops.sosfilt_coupled`),
+            all differentiable. The JAX package's callable methods are not
+            ported and raise.
     """
     bs = x.shape[0]
     sos = parametric_eq_sos(
@@ -195,20 +242,97 @@ def parametric_eq_sos(bs, dtype, sample_rate, *params, device=None) -> torch.Ten
     return torch.stack(sections, dim=1)
 
 
+def _callable_not_ported(what: str) -> ValueError:
+    return _not_ported(f"a callable {what} (the JAX package's hook for its sequence-sharded versions)", "item 11")
+
+
 def _apply_sos(sos, x, filter_method):
+    if callable(filter_method):
+        raise _callable_not_ported("filter_method")
     if filter_method == "pallas":
         return sosfilt_pallas(sos, x)
     if filter_method == "exact":
         return sosfilt_exact(sos, x)
     if filter_method == "block":
         return sosfilt_blockmat(sos, x)
+    if filter_method == "coupled":
+        return sosfilt_coupled(sos, x)
     if filter_method == "fsm":
         return sosfilt_via_fsm(sos, x)
-    if filter_method == "coupled":
-        raise _not_ported(f"filter_method={filter_method!r}", "item 5")
     raise ValueError(
-        f"Unknown filter_method: {filter_method!r}. Expected 'fsm', 'pallas', 'exact' or 'block'."
+        f"Unknown filter_method: {filter_method!r}. Expected 'fsm', 'exact', 'block', 'coupled' or 'pallas'."
     )
+
+
+def _apply_sos_batched(sos_list, x_list, filter_method):
+    """Several same-shaped (sos, x) filter jobs as one batched filter call:
+    every method is batched over the leading axis, so the legs stacked on
+    it share one launch (one scan across blocks for the block-state
+    methods)."""
+    y = _apply_sos(torch.cat(sos_list, dim=0), torch.cat(x_list, dim=0), filter_method)
+    bs = x_list[0].shape[0]
+    return [y[i * bs : (i + 1) * bs] for i in range(len(x_list))]
+
+
+def _apply_first_order(y, b, a, filter_method):
+    """A batched first-order IIR (b, a of shape (bs, 2)) over (bs, chs, T)."""
+    if callable(filter_method):
+        raise _callable_not_ported("filter_method")
+    if filter_method == "fsm":
+        return lfilter_via_fsm(y, b, a)
+    if filter_method == "exact":
+        return lfilter1_exact(y, b[:, None, :], a[:, None, :])
+    if filter_method == "block":
+        return lfilter1_blockmat(y, b, a)
+    if filter_method == "coupled":
+        # one real pole: the coupled cascade takes its controller form
+        return sosfilt_coupled(embed_first_order_sos(b, a)[:, None, :], y)
+    raise ValueError(
+        f"Unknown filter_method: {filter_method!r}. Expected 'fsm', 'exact', 'block' or 'coupled'."
+    )
+
+
+# ---------------------------------------------------------------------------
+# graphic EQ
+# ---------------------------------------------------------------------------
+
+# the 10-band octave graphic EQ's centre frequencies (Hz)
+GRAPHIC_EQ_BANDS = (31.5, 63.0, 125.0, 250.0, 500.0, 1000.0, 2000.0, 4000.0, 8000.0, 16000.0)
+# one-octave bandwidth: Q = sqrt(2^N) / (2^N - 1) with N = 1
+_GRAPHIC_EQ_Q = math.sqrt(2.0)
+
+
+def graphic_eq(x: torch.Tensor, sample_rate: float, band_gains_db, filter_method: str = "coupled") -> torch.Tensor:
+    """Ten-band octave graphic equalizer (31.5 Hz to 16 kHz): a cascade of
+    10 peaking biquads at the octave centres with one-octave bandwidth.
+
+    Args:
+        x: (bs, chs, T).
+        sample_rate: audio sample rate (Hz).
+        band_gains_db: per-band gains in dB, (bs, 10).
+        filter_method: "coupled" (the default: the 31.5 and 63 Hz bands put
+            poles about 1e-4 from the unit circle, where the coupled
+            realization stays exact), "block", "exact", "pallas" or "fsm",
+            as in :func:`parametric_eq`.
+    """
+    sos = graphic_eq_sos(x.shape[0], x.dtype, sample_rate, band_gains_db, device=x.device)
+    return _apply_sos(sos, x, filter_method)
+
+
+def graphic_eq_sos(bs, dtype, sample_rate, band_gains_db, device=None) -> torch.Tensor:
+    """The graphic EQ's cascade as a (bs, 10, 6) SOS tensor. Band centres
+    are clamped to 0.999 x Nyquist (below 32 kHz the 16 kHz band would
+    otherwise pass it); a clamped band sits at Nyquist, near transparent."""
+    band_gains_db = torch.as_tensor(band_gains_db, dtype=dtype, device=device).reshape(bs, len(GRAPHIC_EQ_BANDS))
+    device = band_gains_db.device
+    f_max = 0.999 * sample_rate / 2.0
+    sections = []
+    for i, fc in enumerate(GRAPHIC_EQ_BANDS):
+        f = torch.full((bs,), min(fc, f_max), dtype=dtype, device=device)
+        q = torch.full((bs,), _GRAPHIC_EQ_Q, dtype=dtype, device=device)
+        b, a = biquad(band_gains_db[:, i], f, q, sample_rate, "peaking")
+        sections.append(torch.cat([b, a], dim=-1))
+    return torch.stack(sections, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -262,10 +386,14 @@ def _smooth_gain(g_c, alpha_a, alpha_r, smoother):
     "fsm" (attack-only one-pole by the reference's frequency-sampling
     approximation), "exact_pallas" (true attack/release ballistics, CUDA
     kernel), "pallas" (attack-only one-pole through the CUDA biquad-cascade
-    kernel), "block" (attack-only one-pole by the block-state formulation)
-    or "exact" (true ballistics, plain loop)."""
+    kernel), "block" (attack-only one-pole by the block-state formulation),
+    "attack_only" (attack-only one-pole by an associative scan), or
+    "parallel" / "exact" (:func:`~dasp_tpu_torch.ops.ballistics_smooth`'s
+    two-scan approximation and its plain loop)."""
+    if callable(smoother):
+        raise _callable_not_ported("smoother")
     if smoother == "exact_pallas":
-        return ballistics_pallas(g_c, alpha_a, alpha_r)
+        return ballistics_pallas(g_c.contiguous(), alpha_a, alpha_r)
     if smoother in ("pallas", "block", "fsm"):
         b, a = onepole_ba(alpha_a.reshape(g_c.shape[0], 1).to(g_c.dtype))
         if smoother == "block":
@@ -280,12 +408,13 @@ def _smooth_gain(g_c, alpha_a, alpha_r, smoother):
         alpha = alpha_a.reshape(g_c.shape[0], *([1] * (g_c.ndim - 1))).to(g_c.dtype)
         step = fsm_onepole_step_response(alpha, g_c.shape[-1])
         return lfilter_via_fsm(g_c - mean, b, a) + mean * step
-    if smoother == "exact":
-        return ballistics_smooth(g_c, alpha_a, alpha_r, mode="exact")
-    if smoother in ("attack_only", "parallel"):
-        raise _not_ported(f"smoother={smoother!r}", "item 5")
+    if smoother == "attack_only":
+        return onepole_exact(g_c, alpha_a)
+    if smoother in ("parallel", "exact"):
+        return ballistics_smooth(g_c, alpha_a, alpha_r, mode=smoother)
     raise ValueError(
-        f"Unknown smoother: {smoother!r}. Expected 'fsm', 'exact_pallas', 'pallas', 'block' or 'exact'."
+        f"Unknown smoother: {smoother!r}. Expected 'fsm', 'exact_pallas', 'pallas', 'block', 'attack_only', "
+        "'parallel' or 'exact'."
     )
 
 
@@ -312,26 +441,581 @@ def compressor(
             makeup_gain_db: shape (bs,) each.
         eps: floor of the level detector.
         lookahead_samples: delay the audio against the gain curve.
-        smoother: "fsm", "exact_pallas", "pallas", "block" or "exact"
-            (see :func:`_smooth_gain`). The JAX package's "attack_only",
-            "parallel" and callable smoothers are not ported yet and raise.
+        smoother: "fsm", "exact_pallas", "pallas", "block", "attack_only",
+            "parallel" or "exact" (see :func:`_smooth_gain`). The JAX
+            package's callable smoothers are not ported and raise.
     """
-    bs = x.shape[0]
-    dtype, device = x.dtype, x.device
-    threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db = (
-        _param(p, bs, dtype, device)
-        for p in (threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db)
-    )
+    threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db = _params(
+        x.shape[0], x.dtype, x.device, threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db)
     _, x_db, alpha_a, alpha_r = _dynamics_common(x, sample_rate, attack_ms, release_ms, eps)
     g_c = static_gain_computer(x_db, threshold_db, ratio, knee_db, "compressor")
     g_smooth = _smooth_gain(g_c, alpha_a, alpha_r, smoother)
 
-    if lookahead_samples > 0:
-        # delay the audio relative to the gain curve, zeros shifted in
-        la = min(lookahead_samples, x.shape[-1])
-        x = torch.cat([torch.zeros_like(x[..., :la]), x[..., : x.shape[-1] - la]], dim=-1)
+    return _lookahead(x, lookahead_samples) * db_to_linear(g_smooth + makeup_gain_db)
 
+
+def _lookahead(x, lookahead_samples: int):
+    """x delayed by ``lookahead_samples`` against the gain curve, zeros
+    shifted in."""
+    if lookahead_samples <= 0:
+        return x
+    la = min(lookahead_samples, x.shape[-1])
+    return torch.cat([torch.zeros_like(x[..., :la]), x[..., : x.shape[-1] - la]], dim=-1)
+
+
+def expander(
+    x: torch.Tensor,
+    sample_rate: float,
+    threshold_db,
+    ratio,
+    attack_ms,
+    release_ms,
+    knee_db,
+    makeup_gain_db,
+    eps: float = 1e-8,
+    smoother: str = "exact_pallas",
+) -> torch.Tensor:
+    """Downward expander, the compressor's dual: the Giannoulis et al.
+    (2012) expander curve on the compressor's sidechain, knee and
+    ballistics; below the threshold the level falls ``ratio`` dB per dB.
+
+    Args:
+        x: (bs, chs, T).
+        threshold_db, ratio, attack_ms, release_ms, knee_db,
+            makeup_gain_db: shape (bs,) each.
+        eps: floor of the level detector.
+        smoother: "exact_pallas" (the default: the CUDA ballistics kernel),
+            or any other of :func:`_smooth_gain`.
+    """
+    threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db = _params(
+        x.shape[0], x.dtype, x.device, threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db)
+    _, x_db, alpha_a, alpha_r = _dynamics_common(x, sample_rate, attack_ms, release_ms, eps)
+    g_c = static_gain_computer(x_db, threshold_db, ratio, knee_db, "expander")
+    g_smooth = _smooth_gain(g_c, alpha_a, alpha_r, smoother)
     return x * db_to_linear(g_smooth + makeup_gain_db)
+
+
+def sidechain_compressor(
+    x: torch.Tensor,
+    sample_rate: float,
+    threshold_db,
+    ratio,
+    attack_ms,
+    release_ms,
+    knee_db,
+    makeup_gain_db,
+    eps: float = 1e-8,
+    lookahead_samples: int = 0,
+    smoother: str = "exact_pallas",
+    sidechain: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """A compressor whose detector listens to an external ``sidechain``
+    (a ducker): the compressor's machinery with the detector input
+    swapped. Gradients flow to the parameters, the program and the
+    sidechain.
+
+    Args:
+        x: program audio, (bs, chs, T).
+        threshold_db ... makeup_gain_db: as :func:`compressor`, (bs,) each.
+        eps: floor of the level detector.
+        lookahead_samples: delay the program against the gain curve.
+        smoother: "exact_pallas" (the default) or any of :func:`_smooth_gain`.
+        sidechain: the key signal, (bs, any chs, T), a required keyword.
+    """
+    if sidechain is None:
+        raise ValueError(
+            "sidechain_compressor requires `sidechain` (the key signal the "
+            "detector listens to); pass it as a keyword argument."
+        )
+    bs, _, seq_len = x.shape
+    if sidechain.shape[0] != bs or sidechain.shape[-1] != seq_len:
+        raise ValueError(
+            f"sidechain batch/length {tuple(sidechain.shape)} does not match program audio {tuple(x.shape)} "
+            "(channels may differ; batch and seq_len must not)."
+        )
+    threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db = _params(
+        bs, x.dtype, x.device, threshold_db, ratio, attack_ms, release_ms, knee_db, makeup_gain_db)
+    _, x_db, alpha_a, alpha_r = _dynamics_common(sidechain, sample_rate, attack_ms, release_ms, eps)
+    g_c = static_gain_computer(x_db, threshold_db, ratio, knee_db, "compressor")
+    g_smooth = _smooth_gain(g_c, alpha_a, alpha_r, smoother)
+    return _lookahead(x, lookahead_samples) * db_to_linear(g_smooth + makeup_gain_db)
+
+
+def _hold_max(g: torch.Tensor, hold_samples: int) -> torch.Tensor:
+    """Causal moving maximum ``out[t] = max(g[t - hold .. t])`` by the van
+    Herk decomposition: with blocks of B = hold + 1 samples the window
+    spans at most two blocks, so it is the larger of a suffix max and a
+    prefix max within blocks, two running maxima (:func:`running_max`,
+    a tie's gradient split as in JAX)."""
+    if hold_samples <= 0:
+        return g
+    bs, chs, T = g.shape
+    B = hold_samples + 1
+    gp = nnf.pad(g, (0, (-T) % B), value=-math.inf)
+    blocks = gp.reshape(bs, chs, -1, B)
+    pre = running_max(blocks, 3).reshape(bs, chs, -1)[..., :T]
+    suf = running_max(blocks, 3, reverse=True).reshape(bs, chs, -1)
+    suf_shifted = nnf.pad(suf, (hold_samples, 0), value=-math.inf)[..., :T]
+    return torch.maximum(pre, suf_shifted)
+
+
+def noise_gate(
+    x: torch.Tensor,
+    sample_rate: float,
+    threshold_db,
+    ratio,
+    range_db,
+    attack_ms,
+    release_ms,
+    knee_db,
+    eps: float = 1e-8,
+    hold_ms: float = 0.0,
+    smoother: str = "exact_pallas",
+) -> torch.Tensor:
+    """Noise gate: the expander curve floored at ``-range_db``, with an
+    optional hold (a causal moving maximum of ``hold_ms``) and the
+    ballistics swapped against the compressor's, so that ``attack_ms`` is
+    how fast the gate opens and ``release_ms`` how fast it closes.
+
+    Args:
+        x: (bs, chs, T).
+        threshold_db, ratio, range_db, attack_ms, release_ms, knee_db:
+            shape (bs,) each.
+        eps: floor of the level detector.
+        hold_ms: static hold time (ms).
+        smoother: "exact_pallas" (the default), "exact" or "parallel": an
+            attack-only smoother cannot both open and close a gate.
+    """
+    if smoother not in ("parallel", "exact", "exact_pallas"):
+        raise ValueError(f"noise_gate smoother must be 'parallel', 'exact' or 'exact_pallas', got {smoother!r}.")
+    threshold_db, ratio, range_db, attack_ms, release_ms, knee_db = _params(
+        x.shape[0], x.dtype, x.device, threshold_db, ratio, range_db, attack_ms, release_ms, knee_db)
+    _, x_db, alpha_a, alpha_r = _dynamics_common(x, sample_rate, attack_ms, release_ms, eps)
+    g_c = static_gain_computer(x_db, threshold_db, ratio, knee_db, "expander")
+    g_c = torch.maximum(g_c, -range_db)
+    g_c = _hold_max(g_c, int(round(sample_rate * hold_ms / 1e3)))
+    # the smoother's first coefficient acts where the gain falls (the gate
+    # closing, its release), the second where it rises (opening, its attack)
+    g_smooth = _smooth_gain(g_c, alpha_r, alpha_a, smoother)
+    return x * db_to_linear(g_smooth)
+
+
+def de_esser(
+    x: torch.Tensor,
+    sample_rate: float,
+    frequency_hz,
+    threshold_db,
+    ratio,
+    attack_ms,
+    release_ms,
+    knee_db,
+    eps: float = 1e-8,
+    mode: str = "split",
+    smoother: str = "exact_pallas",
+    filter_method: str = "coupled",
+) -> torch.Tensor:
+    """Frequency-selective compressor for sibilance: the detector listens to
+    the program high-passed at ``frequency_hz`` (an LR4 leg), and the gain
+    reduction acts on the high band only (``mode="split"``: the program is
+    split by the LR4 crossover, whose bands sum to its allpass) or on the
+    whole signal (``"wideband"``).
+
+    Args:
+        x: (bs, chs, T).
+        frequency_hz, threshold_db, ratio, attack_ms, release_ms, knee_db:
+            shape (bs,) each.
+        eps: floor of the level detector.
+        mode: "split" or "wideband".
+        smoother: "exact_pallas" (the default) or any of :func:`_smooth_gain`.
+        filter_method: the crossover's method, as :func:`parametric_eq`'s.
+    """
+    if mode not in ("split", "wideband"):
+        raise ValueError(f"de_esser mode must be 'split' or 'wideband', got {mode!r}.")
+    bs, dtype, device = x.shape[0], x.dtype, x.device
+    frequency_hz = _param(frequency_hz, bs, dtype, device).reshape(bs)
+    threshold_db, ratio, attack_ms, release_ms, knee_db = _params(
+        bs, dtype, device, threshold_db, ratio, attack_ms, release_ms, knee_db)
+    sos_lp, sos_hp = lr4_crossover_sos(frequency_hz, sample_rate, bs, dtype)
+    if mode == "split":
+        low, high = _apply_sos_batched([sos_lp, sos_hp], [x, x], filter_method)
+    else:
+        high = _apply_sos(sos_hp, x, filter_method)
+    _, det_db, alpha_a, alpha_r = _dynamics_common(high, sample_rate, attack_ms, release_ms, eps)
+    g_c = static_gain_computer(det_db, threshold_db, ratio, knee_db, "compressor")
+    g_lin = db_to_linear(_smooth_gain(g_c, alpha_a, alpha_r, smoother))
+    if mode == "split":
+        return low + high * g_lin
+    return x * g_lin
+
+
+def _transient_detectors(
+    x, sample_rate, fast_attack_ms, slow_attack_ms, fast_release_ms, slow_release_ms, eps, smoother,
+    pre_smooth_ms=5.0, max_det_db=24.0, y0=None, return_yf=False,
+):
+    """The transient shaper's differential envelope detectors.
+
+    The mono-summed power, pre-smoothed by a one-pole of ``pre_smooth_ms``,
+    in dB; then two ballistics followers (in the gain-curve convention, so
+    rise and fall times take the release and attack slots), fast rise /
+    fast fall and slow rise / fast fall, each starting at the first level
+    sample; and two peak-decay followers (:func:`~dasp_tpu_torch.ops.
+    peak_decay`, instant rise, 20 dB per release time of fall).
+    ``attack = relu(env_ff - env_sf)`` and ``sustain = relu(pd_slow -
+    pd_fast)``, each capped at ``max_det_db``.
+
+    Returns ``(att_det, sus_det)``, with ``return_yf`` also the five
+    carried states (pre-smoother, two ballistics, two peak-decay).
+    """
+    bs, dtype, device = x.shape[0], x.dtype, x.device
+    x_side = torch.sum(x, dim=1, keepdim=True)
+    ln9 = math.log(9.0)
+    y0 = y0 or (None, None, None, None, None)
+
+    def coef(ms):
+        return torch.exp(-ln9 / (sample_rate * (_param(ms, bs, dtype, device) / 1e3)))
+
+    power = onepole_exact(x_side ** 2, coef(pre_smooth_ms), y0=y0[0])
+    level_db = 10.0 * torch.log10(torch.clamp(power, min=eps * eps))
+    a_fa, a_sa, a_fr = coef(fast_attack_ms), coef(slow_attack_ms), coef(fast_release_ms)
+    # peak-decay slopes in dB a sample: 20 dB per release time
+    d_fr = 20e3 / (sample_rate * _param(fast_release_ms, bs, dtype, device))
+    d_sr = 20e3 / (sample_rate * _param(slow_release_ms, bs, dtype, device))
+
+    lv0 = level_db[..., 0]
+    rest = (lv0, lv0)
+    env_ff, s_ff = ballistics_smooth(level_db, a_fr, a_fa, mode=smoother, y0=y0[1] or rest, return_yf=True)
+    env_sf, s_sf = ballistics_smooth(level_db, a_fr, a_sa, mode=smoother, y0=y0[2] or rest, return_yf=True)
+    pd_fast, s_pf = peak_decay(level_db, d_fr, y0=y0[3], return_yf=True)
+    pd_slow, s_ps = peak_decay(level_db, d_sr, y0=y0[4], return_yf=True)
+    max_det = _param(max_det_db, bs, dtype, device)
+    att_det = torch.minimum(torch.relu(env_ff - env_sf), max_det)
+    sus_det = torch.minimum(torch.relu(pd_slow - pd_fast), max_det)
+    if return_yf:
+        return att_det, sus_det, (power[..., -1], s_ff, s_sf, s_pf, s_ps)
+    return att_det, sus_det
+
+
+def transient_shaper(
+    x: torch.Tensor,
+    sample_rate: float,
+    attack,
+    sustain,
+    output_gain_db=0.0,
+    fast_attack_ms=1.0,
+    slow_attack_ms=30.0,
+    fast_release_ms=50.0,
+    slow_release_ms=500.0,
+    pre_smooth_ms=5.0,
+    max_det_db=24.0,
+    eps: float = 1e-8,
+    smoother: str = "parallel",
+) -> torch.Tensor:
+    """Transient shaper: threshold-free attack and sustain control,
+    ``gain_db(n) = attack * att_det(n) + sustain * sus_det(n) +
+    output_gain_db`` from the detectors of :func:`_transient_detectors`.
+
+    Args:
+        x: (bs, chs, T).
+        attack, sustain: onset and tail gain scales, about [-1, 1], (bs,).
+        output_gain_db: static output gain in dB, (bs,).
+        fast_attack_ms / slow_attack_ms, fast_release_ms / slow_release_ms:
+            the detectors' rise and fall times (ms).
+        pre_smooth_ms: the detector power's one-pole (ms).
+        max_det_db: the detectors' cap in dB.
+        eps: floor of the level detector.
+        smoother: "parallel" (the default) or "exact" (the plain loop),
+            :func:`~dasp_tpu_torch.ops.ballistics_smooth`'s modes.
+    """
+    bs, dtype, device = x.shape[0], x.dtype, x.device
+    attack, sustain, output_gain_db = _params(bs, dtype, device, attack, sustain, output_gain_db)
+    att_det, sus_det = _transient_detectors(
+        x, sample_rate, fast_attack_ms, slow_attack_ms, fast_release_ms, slow_release_ms, eps, smoother,
+        pre_smooth_ms, max_det_db,
+    )
+    gain_db = attack * att_det + sustain * sus_det + output_gain_db
+    return (x * db_to_linear(gain_db)).to(dtype)
+
+
+def limiter(
+    x: torch.Tensor,
+    sample_rate: float,
+    threshold_db,
+    attack_ms,
+    release_ms,
+    knee_db,
+    makeup_gain_db,
+    eps: float = 1e-8,
+    lookahead_samples: int = 0,
+    smoother: str = "exact_pallas",
+) -> torch.Tensor:
+    """Feed-forward limiter, the compressor at ratio -> infinity: the static
+    curve pinned at the threshold above the knee, true attack/release
+    ballistics by default.
+
+    Args:
+        x: (bs, chs, T).
+        threshold_db, attack_ms, release_ms, knee_db, makeup_gain_db:
+            shape (bs,) each.
+        eps: floor of the level detector.
+        lookahead_samples: delay the audio against the gain curve.
+        smoother: "exact_pallas" (the default) or any of :func:`_smooth_gain`.
+    """
+    threshold_db, attack_ms, release_ms, knee_db, makeup_gain_db = _params(
+        x.shape[0], x.dtype, x.device, threshold_db, attack_ms, release_ms, knee_db, makeup_gain_db)
+    _, x_db, alpha_a, alpha_r = _dynamics_common(x, sample_rate, attack_ms, release_ms, eps)
+    g_c = static_gain_computer(x_db, threshold_db, None, knee_db, "limiter")
+    g_smooth = _smooth_gain(g_c, alpha_a, alpha_r, smoother)
+    return _lookahead(x, lookahead_samples) * db_to_linear(g_smooth + makeup_gain_db)
+
+
+# ---------------------------------------------------------------------------
+# multiband dynamics
+# ---------------------------------------------------------------------------
+
+
+def lr4_crossover_sos(crossover_hz, sample_rate, bs, dtype):
+    """A 4th-order Linkwitz-Riley crossover pair: each leg a squared
+    Butterworth (Q = 1/sqrt(2)) biquad, the two legs summing to an allpass.
+
+    Returns:
+        (sos_lp, sos_hp): each (bs, 2, 6), a0-normalized.
+    """
+    crossover_hz = torch.as_tensor(crossover_hz, dtype=dtype)
+    device = crossover_hz.device
+    zeros = torch.zeros((bs,), dtype=dtype, device=device)
+    q = torch.full((bs,), 1.0 / math.sqrt(2.0), dtype=dtype, device=device)
+    b_lp, a_lp = biquad(zeros, crossover_hz, q, sample_rate, "low_pass")
+    b_hp, a_hp = biquad(zeros, crossover_hz, q, sample_rate, "high_pass")
+    sos_lp = torch.stack([torch.cat([b_lp, a_lp], -1)] * 2, dim=1)
+    sos_hp = torch.stack([torch.cat([b_hp, a_hp], -1)] * 2, dim=1)
+    return sos_lp, sos_hp
+
+
+def multiband_compressor(
+    x: torch.Tensor,
+    sample_rate: float,
+    crossover_low_hz,
+    crossover_high_hz,
+    low_threshold_db,
+    low_ratio,
+    low_attack_ms,
+    low_release_ms,
+    low_makeup_gain_db,
+    mid_threshold_db,
+    mid_ratio,
+    mid_attack_ms,
+    mid_release_ms,
+    mid_makeup_gain_db,
+    high_threshold_db,
+    high_ratio,
+    high_attack_ms,
+    high_release_ms,
+    high_makeup_gain_db,
+    knee_db,
+    eps: float = 1e-8,
+    smoother: str = "block",
+    filter_method: str = "coupled",
+) -> torch.Tensor:
+    """Three-band compressor: a phase-compensated LR4 split
+    (:func:`_lr4_three_band_split`), one :func:`compressor` call on the
+    bands stacked on the batch axis (3 x bs), the bands summed.
+
+    Args:
+        x: (bs, chs, T).
+        crossover_low_hz / crossover_high_hz: the band edges (Hz), (bs,);
+            the high one floored at 1.01 x the low one.
+        {low,mid,high}_threshold_db, _ratio, _attack_ms, _release_ms,
+            _makeup_gain_db: per band, (bs,) each.
+        knee_db: shared by the bands, (bs,).
+        eps: floor of the level detectors.
+        smoother: "block" (the default, the attack-only one-pole by the
+            block-state formulation) or any of :func:`_smooth_gain`.
+        filter_method: the crossovers' method (the default "coupled").
+    """
+    bs, dtype, device = x.shape[0], x.dtype, x.device
+    low, mid, high = _lr4_three_band_split(x, crossover_low_hz, crossover_high_hz, sample_rate, filter_method)
+
+    def cat(*ps):
+        return torch.cat([_param(p, bs, dtype, device).reshape(bs) for p in ps], dim=0)
+
+    y = compressor(
+        torch.cat([low, mid, high], dim=0),
+        sample_rate,
+        cat(low_threshold_db, mid_threshold_db, high_threshold_db),
+        cat(low_ratio, mid_ratio, high_ratio),
+        cat(low_attack_ms, mid_attack_ms, high_attack_ms),
+        cat(low_release_ms, mid_release_ms, high_release_ms),
+        cat(knee_db, knee_db, knee_db),
+        cat(low_makeup_gain_db, mid_makeup_gain_db, high_makeup_gain_db),
+        eps=eps,
+        smoother=smoother,
+    )
+    return y[:bs] + y[bs : 2 * bs] + y[2 * bs :]
+
+
+def _lr4_three_band_split(x, crossover_low_hz, crossover_high_hz, sample_rate, filter_method):
+    """The phase-compensated LR4 three-band split: (low, mid, high), each
+    shaped like x, summing flat when unprocessed. ``crossover_high_hz`` is
+    floored at 1.01 x ``crossover_low_hz``."""
+    bs, dtype, device = x.shape[0], x.dtype, x.device
+    f_lo = _param(crossover_low_hz, bs, dtype, device).reshape(bs)
+    f_hi = torch.maximum(_param(crossover_high_hz, bs, dtype, device).reshape(bs), 1.01 * f_lo)
+    sos_lp_lo, sos_hp_lo = lr4_crossover_sos(f_lo, sample_rate, bs, dtype)
+    sos_lp_hi, sos_hp_hi = lr4_crossover_sos(f_hi, sample_rate, bs, dtype)
+    if filter_method == "fsm":
+        # the tree is LTI, so under the FSM its stages compose in frequency:
+        # one rfft of x, three band responses (the low band's phase
+        # compensation, LP_hi + HP_hi, folds into its product), one batched
+        # irfft
+        T = x.shape[-1]
+        n_fft = fsm_fft_size(T)
+        H_lp_lo, H_hp_lo, H_lp_hi, H_hp_hi = (
+            fft_sosfreqz(s, n_fft) for s in (sos_lp_lo, sos_hp_lo, sos_lp_hi, sos_hp_hi))
+        H = torch.stack([H_lp_lo * (H_lp_hi + H_hp_hi), H_hp_lo * H_lp_hi, H_hp_lo * H_hp_hi])[:, :, None, :]
+        X = torch.fft.rfft(x, n_fft, dim=-1)
+        bands = torch.fft.irfft(X[None] * H, n_fft, dim=-1)[..., :T]
+        return bands[0], bands[1], bands[2]
+    # stage 1: both legs of the low split in one call; stage 2: mid and
+    # high from the rest, and the low band through the high crossover's
+    # allpass (its LP + HP) to stay phase-aligned, four legs in one call
+    low_pre, rest = _apply_sos_batched([sos_lp_lo, sos_hp_lo], [x, x], filter_method)
+    mid, high, lo_lp, lo_hp = _apply_sos_batched(
+        [sos_lp_hi, sos_hp_hi, sos_lp_hi, sos_hp_hi], [rest, rest, low_pre, low_pre], filter_method)
+    return lo_lp + lo_hp, mid, high
+
+
+# ---------------------------------------------------------------------------
+# tone and saturation
+# ---------------------------------------------------------------------------
+
+
+def advanced_distortion(
+    x: torch.Tensor,
+    sample_rate: float,
+    input_gain_db,
+    output_gain_db,
+    tone,
+    dc_offset,
+    filter_method: str = "block",
+) -> torch.Tensor:
+    """Distortion with input and output gain, tone and dc offset: input gain
+    and dc bias into a tanh waveshaper, then a tone stage blending a
+    first-order highpass at 1.16 kHz with a first-order lowpass at 320 Hz,
+    then the output gain.
+
+    Args:
+        x: (bs, chs, T).
+        input_gain_db, output_gain_db: gains in dB, (bs,).
+        tone: highpass share on (0, 1), (bs,).
+        dc_offset: bias before the shaper, (bs,).
+        filter_method: the tone filters' method: "block" (the default),
+            "exact", "coupled" or "fsm".
+    """
+    bs, dtype, device = x.shape[0], x.dtype, x.device
+    input_gain_db, output_gain_db, tone, dc_offset = _params(
+        bs, dtype, device, input_gain_db, output_gain_db, tone, dc_offset)
+    y = torch.tanh(x * db_to_linear(input_gain_db) + dc_offset)
+    b_hp, a_hp = one_pole_butter_highpass(torch.full((bs,), 1160.0, dtype=dtype, device=device), sample_rate)
+    b_lp, a_lp = one_pole_butter_lowpass(torch.full((bs,), 320.0, dtype=dtype, device=device), sample_rate)
+    y_hp = _apply_first_order(y, b_hp, a_hp, filter_method)
+    y_lp = _apply_first_order(y, b_lp, a_lp, filter_method)
+    y = tone * y_hp + (1.0 - tone) * y_lp
+    return y * db_to_linear(output_gain_db)
+
+
+def exciter_sos(bs, dtype, frequency_hz, sample_rate) -> torch.Tensor:
+    """The exciter's second-order high-pass section, (bs, 1, 6)."""
+    frequency_hz = torch.as_tensor(frequency_hz, dtype=dtype)
+    device = frequency_hz.device
+    zeros = torch.zeros((bs,), dtype=dtype, device=device)
+    q = torch.full((bs,), 0.7071, dtype=dtype, device=device)
+    b, a = biquad(zeros, frequency_hz.reshape(bs), q, sample_rate, "high_pass")
+    return torch.cat([b, a], -1)[:, None, :]
+
+
+def exciter(
+    x: torch.Tensor,
+    sample_rate: float,
+    frequency_hz,
+    drive_db,
+    amount,
+    filter_method: str = "coupled",
+) -> torch.Tensor:
+    """Harmonic exciter: ``y = x + amount * tanh(g * highpass(x)) / g`` with
+    ``g = 10^(drive / 20)``; the high-pass a second-order Butterworth-Q
+    biquad at ``frequency_hz``.
+
+    Args:
+        x: (bs, chs, T).
+        frequency_hz: the high-pass corner (Hz), (bs,).
+        drive_db: the waveshaper's drive (dB), (bs,).
+        amount: wet blend on [0, 1], (bs,).
+        filter_method: "coupled" (the default) or another of
+            :func:`parametric_eq`'s.
+    """
+    bs, dtype, device = x.shape[0], x.dtype, x.device
+    frequency_hz, drive_db, amount = _params(bs, dtype, device, frequency_hz, drive_db, amount)
+    high = _apply_sos(exciter_sos(bs, dtype, frequency_hz, sample_rate), x, filter_method)
+    g = db_to_linear(drive_db)
+    return (x + amount * (torch.tanh(high * g) / g)).to(dtype)
+
+
+def bitcrusher(x: torch.Tensor, sample_rate: float, bit_depth, sample_rate_hz, mix) -> torch.Tensor:
+    """Bit-depth and sample-rate reduction with continuous controls.
+
+    * Zero-order hold on the reduced clock: the tick ordinal is
+      ``floor(n * r + 1e-6)`` with ``r = sample_rate_hz / sample_rate``
+      (multiplies and floors only, no division by r), a sample is a tick
+      where the ordinal grows, and each sample holds the latest tick's
+      value, found by a running max of the tick indices (integers: no
+      gradient flows through it). The gather is differentiable in x;
+      ``sample_rate_hz`` gets no gradient through the integer positions.
+    * Quantization to ``bit_depth`` bits (may be fractional): the forward
+      value is ``round`` (half to even), the backward that of the smooth
+      surrogate ``u - sin(2 pi u) / (2 pi)``, so gradients reach
+      ``bit_depth`` and x.
+
+    Args:
+        x: (bs, chs, T).
+        bit_depth: bits (>= 1), (bs,).
+        sample_rate_hz: the hold clock (Hz, <= sample_rate), (bs,).
+        mix: dry/wet on [0, 1], (bs,).
+    """
+    bs, chs, seq_len = x.shape
+    dtype, device = x.dtype, x.device
+    bit_depth, sample_rate_hz, mix = _params(bs, dtype, device, bit_depth, sample_rate_hz, mix)
+
+    # a tensor divisor: CUDA divides by a Python number as a multiply by its
+    # reciprocal, which would move the ticks against the CPU's IEEE division
+    r = torch.clamp(sample_rate_hz / torch.full_like(sample_rate_hz, sample_rate), 0.0, 1.0)
+    n = torch.arange(seq_len, dtype=torch.float32, device=device)[None, None, :]
+    tick = torch.floor(n * r + 1e-6)
+    is_tick = torch.cat([torch.ones_like(tick[..., :1], dtype=torch.bool), tick[..., 1:] > tick[..., :-1]], dim=-1)
+    n_int = torch.arange(seq_len, dtype=torch.int64, device=device)[None, None, :]
+    hold_idx = torch.cummax(torch.where(is_tick, n_int, 0), dim=2).values
+    held = torch.gather(x, -1, hold_idx.expand(bs, chs, seq_len))
+
+    scale = 2.0 ** (bit_depth - 1.0)
+    u = held * scale
+    q_soft = u - torch.sin(2.0 * math.pi * u) / (2.0 * math.pi)
+    q = q_soft + (torch.round(u) - q_soft).detach()
+    return (1.0 - mix) * x + mix * (q / scale)
+
+
+def clipper(x: torch.Tensor, sample_rate: float, threshold_db, hardness) -> torch.Tensor:
+    """Clipper with a ceiling ``c = 10^(threshold_db / 20)`` and a hard/soft
+    blend: ``y = (1 - h) c tanh(x / c) + h clip(x, -c, c)``.
+
+    Args:
+        x: (bs, chs, T). sample_rate: unused.
+        threshold_db: the ceiling in dB, (bs,).
+        hardness: the hard share on [0, 1], (bs,).
+    """
+    threshold_db, hardness = _params(x.shape[0], x.dtype, x.device, threshold_db, hardness)
+    c = db_to_linear(threshold_db)
+    soft = c * torch.tanh(x / c)
+    hard = torch.minimum(torch.maximum(x, -c), c)  # jnp.clip's form: a tie splits the gradient
+    return ((1.0 - hardness) * soft + hardness * hard).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

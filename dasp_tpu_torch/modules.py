@@ -12,8 +12,8 @@ PyTorch runs every call eagerly, so the out-of-range check of
 package skips it under tracing). The check reads the values back to the
 host, which waits for a GPU; the render path passes ``clip_params=True``.
 
-The other processors of the JAX package are not ported yet (see
-ROADMAP.md).
+The delay family's other processors, the time-varying (WOLA) family and
+``ConvolutionReverb`` are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,8 +32,20 @@ __all__ = [
     "Chain",
     "Gain",
     "Distortion",
+    "AdvancedDistortion",
     "ParametricEQ",
+    "GraphicEQ",
     "Compressor",
+    "Expander",
+    "SidechainCompressor",
+    "NoiseGate",
+    "DeEsser",
+    "Bitcrusher",
+    "TransientShaper",
+    "Exciter",
+    "Clipper",
+    "Limiter",
+    "MultibandCompressor",
     "NoiseShapedReverb",
     "StereoWidener",
     "StereoPanner",
@@ -166,10 +178,10 @@ class Processor:
         return out
 
 
-def _with_default(fn, key, value):
-    """``fn`` with keyword ``key`` defaulting to ``value`` (a caller may
-    still pass it); positional arguments pass straight through."""
-    return lambda x, *a, **kw: fn(x, *a, **{key: value, **kw})
+def _with_defaults(fn, **defaults):
+    """``fn`` with these keyword defaults (a caller may still pass each);
+    positional arguments pass straight through."""
+    return lambda x, *a, **kw: fn(x, *a, **{**defaults, **kw})
 
 
 class Chain(Processor):
@@ -257,6 +269,29 @@ class Distortion(Processor):
         self.param_ranges = {"drive_db": (min_drive_db, max_drive_db)}
 
 
+class AdvancedDistortion(Processor):
+    """Distortion with gain staging, tone and dc offset
+    (:func:`functional.advanced_distortion`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_gain_db: float = 0.0,
+        max_gain_db: float = 24.0,
+        min_dc_offset: float = -0.1,
+        max_dc_offset: float = 0.1,
+        filter_method: str = "block",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.advanced_distortion, filter_method=filter_method)
+        self.param_ranges = {
+            "input_gain_db": (min_gain_db, max_gain_db),
+            "output_gain_db": (-max_gain_db, 0.0),
+            "tone": (0.0, 1.0),
+            "dc_offset": (min_dc_offset, max_dc_offset),
+        }
+
+
 class ParametricEQ(Processor):
     """Six-band parametric EQ (same staggered per-band cutoff ranges as the
     JAX package). ``filter_method`` as in :func:`functional.parametric_eq`:
@@ -272,7 +307,7 @@ class ParametricEQ(Processor):
         filter_method: str = "fsm",
     ):
         self.sample_rate = sample_rate
-        self.process_fn = _with_default(F.parametric_eq, "filter_method", filter_method)
+        self.process_fn = _with_defaults(F.parametric_eq, filter_method=filter_method)
         self.param_ranges = {
             "low_shelf_gain_db": (min_gain_db, max_gain_db),
             "low_shelf_cutoff_freq": (20, 2000),
@@ -293,6 +328,32 @@ class ParametricEQ(Processor):
             "high_shelf_cutoff_freq": (4000, (sample_rate // 2) - 1000),
             "high_shelf_q_factor": (min_q_factor, max_q_factor),
         }
+
+
+class GraphicEQ(Processor):
+    """Ten-band octave graphic EQ (:func:`functional.graphic_eq`), one
+    parameter ``band{i}_gain_db`` per band. ``process(x, sr, gains)``
+    passes a (bs, 10) gain tensor straight through."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_gain_db: float = -12.0,
+        max_gain_db: float = 12.0,
+        filter_method: str = "coupled",
+    ):
+        self.sample_rate = sample_rate
+        n_bands = len(F.GRAPHIC_EQ_BANDS)
+        self.param_ranges = {f"band{i}_gain_db": (min_gain_db, max_gain_db) for i in range(n_bands)}
+
+        def _process(x, sr, *args, **kw):
+            fm = kw.pop("filter_method", filter_method)
+            if args:  # raw positional passthrough: graphic_eq(x, sr, gains)
+                return F.graphic_eq(x, sr, *args, filter_method=fm, **kw)
+            gains = torch.stack([kw.pop(f"band{i}_gain_db") for i in range(n_bands)], dim=-1)
+            return F.graphic_eq(x, sr, gains, filter_method=fm, **kw)
+
+        self.process_fn = _process
 
 
 class Compressor(Processor):
@@ -318,7 +379,7 @@ class Compressor(Processor):
         smoother: str = "fsm",
     ):
         self.sample_rate = sample_rate
-        self.process_fn = _with_default(F.compressor, "smoother", smoother)
+        self.process_fn = _with_defaults(F.compressor, smoother=smoother)
         self.param_ranges = {
             "threshold_db": (min_threshold_db, max_threshold_db),
             "ratio": (min_ratio, max_ratio),
@@ -326,6 +387,307 @@ class Compressor(Processor):
             "release_ms": (min_release_ms, max_release_ms),
             "knee_db": (min_knee_db, max_knee_db),
             "makeup_gain_db": (min_makeup_gain_db, max_makeup_gain_db),
+        }
+
+
+class Expander(Processor):
+    """Downward expander, the compressor's dual (:func:`functional.expander`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_threshold_db: float = -60.0,
+        max_threshold_db: float = 0.0,
+        min_ratio: float = 1.0,
+        max_ratio: float = 20.0,
+        min_attack_ms: float = 5.0,
+        max_attack_ms: float = 100.0,
+        min_release_ms: float = 5.0,
+        max_release_ms: float = 100.0,
+        min_knee_db: float = 0.0,
+        max_knee_db: float = 12.0,
+        min_makeup_gain_db: float = 0.0,
+        max_makeup_gain_db: float = 12.0,
+        smoother: str = "exact_pallas",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.expander, smoother=smoother)
+        self.param_ranges = {
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "ratio": (min_ratio, max_ratio),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+            "knee_db": (min_knee_db, max_knee_db),
+            "makeup_gain_db": (min_makeup_gain_db, max_makeup_gain_db),
+        }
+
+
+class SidechainCompressor(Processor):
+    """Compressor keyed by an external sidechain, a ducker
+    (:func:`functional.sidechain_compressor`). The key signal is not a
+    parameter: pass it as ``process_normalized(x, p, sidechain=key)``;
+    :class:`Chain` forwards it."""
+
+    consumes_kwargs = ("sidechain",)
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_threshold_db: float = -60.0,
+        max_threshold_db: float = 0.0,
+        min_ratio: float = 1.0,
+        max_ratio: float = 20.0,
+        min_attack_ms: float = 5.0,
+        max_attack_ms: float = 100.0,
+        min_release_ms: float = 5.0,
+        max_release_ms: float = 500.0,
+        min_knee_db: float = 0.0,
+        max_knee_db: float = 12.0,
+        min_makeup_gain_db: float = 0.0,
+        max_makeup_gain_db: float = 12.0,
+        smoother: str = "exact_pallas",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.sidechain_compressor, smoother=smoother)
+        self.param_ranges = {
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "ratio": (min_ratio, max_ratio),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+            "knee_db": (min_knee_db, max_knee_db),
+            "makeup_gain_db": (min_makeup_gain_db, max_makeup_gain_db),
+        }
+
+
+class NoiseGate(Processor):
+    """Noise gate (:func:`functional.noise_gate`); ``hold_ms`` is a
+    constructor setting, not a parameter."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_threshold_db: float = -80.0,
+        max_threshold_db: float = 0.0,
+        min_ratio: float = 1.0,
+        max_ratio: float = 20.0,
+        min_range_db: float = 0.0,
+        max_range_db: float = 80.0,
+        min_attack_ms: float = 0.05,
+        max_attack_ms: float = 20.0,
+        min_release_ms: float = 5.0,
+        max_release_ms: float = 500.0,
+        min_knee_db: float = 0.0,
+        max_knee_db: float = 12.0,
+        hold_ms: float = 0.0,
+        smoother: str = "exact_pallas",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.noise_gate, smoother=smoother, hold_ms=hold_ms)
+        self.param_ranges = {
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "ratio": (min_ratio, max_ratio),
+            "range_db": (min_range_db, max_range_db),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+            "knee_db": (min_knee_db, max_knee_db),
+        }
+
+
+class DeEsser(Processor):
+    """Sibilance compressor (:func:`functional.de_esser`); ``mode``
+    ("split" or "wideband") is a constructor setting."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_frequency_hz: float = 2000.0,
+        max_frequency_hz: float = 12000.0,
+        min_threshold_db: float = -60.0,
+        max_threshold_db: float = 0.0,
+        min_ratio: float = 1.0,
+        max_ratio: float = 20.0,
+        min_attack_ms: float = 0.5,
+        max_attack_ms: float = 20.0,
+        min_release_ms: float = 5.0,
+        max_release_ms: float = 200.0,
+        min_knee_db: float = 0.0,
+        max_knee_db: float = 12.0,
+        mode: str = "split",
+        smoother: str = "exact_pallas",
+        filter_method: str = "coupled",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.de_esser, mode=mode, smoother=smoother, filter_method=filter_method)
+        self.param_ranges = {
+            "frequency_hz": (min_frequency_hz, max_frequency_hz),
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "ratio": (min_ratio, max_ratio),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+            "knee_db": (min_knee_db, max_knee_db),
+        }
+
+
+class Limiter(Processor):
+    """Feed-forward limiter, the compressor at ratio -> infinity
+    (:func:`functional.limiter`), true attack/release ballistics by
+    default."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_threshold_db: float = -24.0,
+        max_threshold_db: float = 0.0,
+        min_attack_ms: float = 0.1,
+        max_attack_ms: float = 20.0,
+        min_release_ms: float = 5.0,
+        max_release_ms: float = 500.0,
+        min_knee_db: float = 0.0,
+        max_knee_db: float = 12.0,
+        min_makeup_gain_db: float = 0.0,
+        max_makeup_gain_db: float = 12.0,
+        lookahead_samples: int = 0,
+        smoother: str = "exact_pallas",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.limiter, smoother=smoother, lookahead_samples=lookahead_samples)
+        self.param_ranges = {
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+            "knee_db": (min_knee_db, max_knee_db),
+            "makeup_gain_db": (min_makeup_gain_db, max_makeup_gain_db),
+        }
+
+
+class MultibandCompressor(Processor):
+    """Three-band compressor over an LR4 crossover tree
+    (:func:`functional.multiband_compressor`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_crossover_low_hz: float = 60.0,
+        max_crossover_low_hz: float = 1000.0,
+        min_crossover_high_hz: float = 1000.0,
+        max_crossover_high_hz: float = 12000.0,
+        min_threshold_db: float = -60.0,
+        max_threshold_db: float = 0.0,
+        min_ratio: float = 1.0,
+        max_ratio: float = 20.0,
+        min_attack_ms: float = 5.0,
+        max_attack_ms: float = 100.0,
+        min_release_ms: float = 5.0,
+        max_release_ms: float = 100.0,
+        min_makeup_gain_db: float = 0.0,
+        max_makeup_gain_db: float = 12.0,
+        min_knee_db: float = 0.0,
+        max_knee_db: float = 12.0,
+        smoother: str = "block",
+        filter_method: str = "coupled",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.multiband_compressor, smoother=smoother, filter_method=filter_method)
+        ranges = {
+            "crossover_low_hz": (min_crossover_low_hz, max_crossover_low_hz),
+            "crossover_high_hz": (min_crossover_high_hz, max_crossover_high_hz),
+        }
+        for band in ("low", "mid", "high"):
+            ranges[f"{band}_threshold_db"] = (min_threshold_db, max_threshold_db)
+            ranges[f"{band}_ratio"] = (min_ratio, max_ratio)
+            ranges[f"{band}_attack_ms"] = (min_attack_ms, max_attack_ms)
+            ranges[f"{band}_release_ms"] = (min_release_ms, max_release_ms)
+            ranges[f"{band}_makeup_gain_db"] = (min_makeup_gain_db, max_makeup_gain_db)
+        ranges["knee_db"] = (min_knee_db, max_knee_db)
+        self.param_ranges = ranges
+
+
+class TransientShaper(Processor):
+    """Threshold-free attack and sustain control
+    (:func:`functional.transient_shaper`); the smoother is a constructor
+    setting."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_attack: float = -1.0,
+        max_attack: float = 1.0,
+        min_sustain: float = -1.0,
+        max_sustain: float = 1.0,
+        min_output_gain_db: float = -12.0,
+        max_output_gain_db: float = 12.0,
+        smoother: str = "parallel",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.transient_shaper, smoother=smoother)
+        self.param_ranges = {
+            "attack": (min_attack, max_attack),
+            "sustain": (min_sustain, max_sustain),
+            "output_gain_db": (min_output_gain_db, max_output_gain_db),
+        }
+
+
+class Exciter(Processor):
+    """Harmonic exciter (:func:`functional.exciter`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_frequency_hz: float = 1000.0,
+        max_frequency_hz: float = 10000.0,
+        min_drive_db: float = 0.0,
+        max_drive_db: float = 24.0,
+        min_amount: float = 0.0,
+        max_amount: float = 1.0,
+        filter_method: str = "coupled",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.exciter, filter_method=filter_method)
+        self.param_ranges = {
+            "frequency_hz": (min_frequency_hz, max_frequency_hz),
+            "drive_db": (min_drive_db, max_drive_db),
+            "amount": (min_amount, max_amount),
+        }
+
+
+class Bitcrusher(Processor):
+    """Bit-depth and sample-rate reduction (:func:`functional.bitcrusher`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_bit_depth: float = 2.0,
+        max_bit_depth: float = 16.0,
+        min_sample_rate_hz: float = 1000.0,
+        max_sample_rate_hz: float = 44100.0,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = F.bitcrusher
+        self.param_ranges = {
+            "bit_depth": (min_bit_depth, max_bit_depth),
+            "sample_rate_hz": (min_sample_rate_hz, max_sample_rate_hz),
+            "mix": (min_mix, max_mix),
+        }
+
+
+class Clipper(Processor):
+    """Hard/soft clipper with a ceiling (:func:`functional.clipper`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_threshold_db: float = -24.0,
+        max_threshold_db: float = 0.0,
+        min_hardness: float = 0.0,
+        max_hardness: float = 1.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = F.clipper
+        self.param_ranges = {
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "hardness": (min_hardness, max_hardness),
         }
 
 
@@ -351,14 +713,8 @@ class NoiseShapedReverb(Processor):
         noise_mode: str = "time",
     ):
         self.sample_rate = sample_rate
-        defaults = {
-            "num_samples": num_samples,
-            "num_bandpass_taps": num_bandpass_taps,
-            "noise_mode": noise_mode,
-        }
-        self.process_fn = lambda x, *a, **kw: F.noise_shaped_reverberation(
-            x, *a, **{**defaults, **kw}
-        )
+        self.process_fn = _with_defaults(F.noise_shaped_reverberation, num_samples=num_samples,
+                                         num_bandpass_taps=num_bandpass_taps, noise_mode=noise_mode)
         ranges = {f"band{i}_gain": (min_band_gain, max_band_gain) for i in range(12)}
         ranges.update({f"band{i}_decay": (min_band_decay, max_band_decay) for i in range(12)})
         ranges["mix"] = (min_mix, max_mix)
@@ -426,7 +782,7 @@ class _ModulatedDelay(Processor):
         max_mix: float = 1.0,
     ):
         self.sample_rate = sample_rate
-        self.process_fn = _with_default(F.modulated_delay, "max_delay_ms", max_base_ms + max_depth_ms)
+        self.process_fn = _with_defaults(F.modulated_delay, max_delay_ms=max_base_ms + max_depth_ms)
         self.param_ranges = {
             "rate_hz": (min_rate_hz, max_rate_hz),
             "depth_ms": (min_depth_ms, max_depth_ms),
@@ -489,7 +845,7 @@ class PitchShift(Processor):
         window_ms: float = 60.0,
     ):
         self.sample_rate = sample_rate
-        self.process_fn = _with_default(F.pitch_shift, "window_ms", window_ms)
+        self.process_fn = _with_defaults(F.pitch_shift, window_ms=window_ms)
         self.param_ranges = {
             "semitones": (min_semitones, max_semitones),
             "mix": (min_mix, max_mix),

@@ -25,9 +25,14 @@ from .iir import (
     block_toeplitz_operators,
     embed_first_order_sos,
     lfilter1_blockmat,
+    lfilter1_exact,
     lti_affine_scan,
     onepole_ba,
+    onepole_exact,
+    onepole_varying,
+    peak_decay,
     sosfilt_blockmat,
+    sosfilt_coupled,
     sosfilt_exact,
     stabilize_sos,
 )
@@ -70,7 +75,12 @@ __all__ = [
     "lti_affine_scan",
     "sosfilt_exact",
     "sosfilt_blockmat",
+    "sosfilt_coupled",
     "lfilter1_blockmat",
+    "onepole_exact",
+    "onepole_varying",
+    "lfilter1_exact",
+    "peak_decay",
     "sosfilt_pallas",
     "sosfilt_plain",
     "sosfilt_rows_grad_plain",

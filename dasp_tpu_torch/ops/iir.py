@@ -1,34 +1,44 @@
 """IIR building blocks: coefficient layouts, stability projection, the
-block-state operators of the biquad cascade, the exact scan-based and
-block-state filters, and exact ballistics.
+block-state operators of the biquad cascade, the first-order scans, the
+exact scan-based and block-state filters, ballistics and the peak-decay
+follower.
 
 PyTorch counterpart of ``dasp_tpu/ops/iir.py``: ``stabilize_sos``,
 ``embed_first_order_sos``, ``onepole_ba``, ``ar_impulse_response``,
 ``block_toeplitz_operators`` (which the plain version of the biquad-cascade
-kernel is also built from), ``sosfilt_exact`` (a 2x2 matrix associative
-scan over time), ``sosfilt_blockmat`` and ``lfilter1_blockmat`` (the
+kernel is also built from), the first-order scans ``onepole_exact``,
+``onepole_varying`` and ``lfilter1_exact`` (one associative scan over time),
+``sosfilt_exact`` (a 2x2 matrix associative scan over time),
+``sosfilt_blockmat``, ``lfilter1_blockmat`` and ``sosfilt_coupled`` (the
 block-state formulation: one batched matmul per section for the
 intra-block Toeplitz part, an associative scan over blocks for the carried
-state), ``lti_affine_scan`` (that scan, with the adjoint recurrence as its
-backward) and ``ballistics_smooth(mode="exact")`` (the plain version of the
-ballistics kernel).
+state; ``sosfilt_coupled`` on the Gold-Rader coupled realization),
+``lti_affine_scan`` (that scan, with the adjoint recurrence as its
+backward), ``ballistics_smooth`` (``"parallel"``, ``"attack_only"`` and
+``"exact"``, the last the plain version of the ballistics kernel) and
+``peak_decay`` (a max-plus scan).
 
 :func:`associative_scan` stands in for ``lax.associative_scan``: the same
-odd/even recursion, so the elements combine in JAX's order.
+odd/even recursion, so the elements combine in JAX's order. The first-order
+scans and ``peak_decay`` compute in the input's dtype on it, so their fp32
+results stay within a few ulps of JAX's; ``peak_decay``'s running max goes
+through it with ``torch.maximum`` (not ``torch.cummax``, whose backward
+gives a tie's whole gradient to the last tied index, where JAX's
+``lax.cummax`` splits it by the balanced max of the same recursion).
 
-Precision: ``sosfilt_exact``, ``sosfilt_blockmat`` and ``lfilter1_blockmat``
-compute in float64 and round their output to the input's dtype once
-(:data:`WORK_DTYPE`). JAX computes them in fp32 with ``Precision.HIGHEST``
-products. In fp32 the impulse response h, the cross-block transition and
-the scanned states round near poles close to the unit circle, which moves
-those poles: with ``ParametricEQ``'s random parameters at 8 x 131072 (a
-low shelf down to 20 Hz at Q up to 6) fp32 evaluation strayed up to 7e-3
-(block) and 0.31 (scan) of the peak from float64 on the CPU (the
-biquad-cascade kernel carries its state in float64 for the same reason).
-In float64 no TF32 setting of the caller reaches the block matmuls
-(cuBLAS DGEMM on the card) and no process-wide setting is changed. The
-other scan modes of ``ballistics_smooth``, ``sosfilt_coupled``, ``onepole_exact`` and
-``lfilter1_exact`` are not ported yet (see ROADMAP.md).
+Precision: ``sosfilt_exact``, ``sosfilt_blockmat``, ``lfilter1_blockmat``
+and ``sosfilt_coupled`` compute in float64 and round their output to the
+input's dtype once (:data:`WORK_DTYPE`). JAX computes them in fp32 with
+``Precision.HIGHEST`` products. In fp32 the impulse response h, the
+cross-block transition and the scanned states round near poles close to
+the unit circle, which moves those poles: with ``ParametricEQ``'s random
+parameters at 8 x 131072 (a low shelf down to 20 Hz at Q up to 6) fp32
+evaluation strayed up to 7e-3 (block) and 0.31 (scan) of the peak from
+float64 on the CPU (the biquad-cascade kernel carries its state in float64
+for the same reason); the coupled realization in fp32 strayed 1.0e-4 of
+the peak on the graphic EQ at +-12 dB (8 x 2 x 131072 on an H100), and
+1.3e-3 with TF32 allowed, where in float64 it sits at 4e-8. In float64 no TF32 setting of the caller reaches the block
+matmuls (cuBLAS DGEMM on the card) and no process-wide setting is changed.
 """
 
 from __future__ import annotations
@@ -41,6 +51,11 @@ import torch.nn.functional as nnf
 from .ballistics_kernel import ballistics_rows_plain
 
 __all__ = [
+    "onepole_exact",
+    "onepole_varying",
+    "lfilter1_exact",
+    "peak_decay",
+    "sosfilt_coupled",
     "stabilize_sos",
     "embed_first_order_sos",
     "onepole_ba",
@@ -137,55 +152,6 @@ def stabilize_sos(sos: torch.Tensor, margin: float = 1e-6) -> torch.Tensor:
     lim = 1.0 + a2.detach() - margin
     a1 = ste_clip(a1, -lim, lim)
     return torch.cat([sos[..., :4], a1[..., None], a2[..., None]], dim=-1)
-
-
-def ballistics_smooth(
-    g: torch.Tensor,
-    alpha_attack: torch.Tensor,
-    alpha_release: torch.Tensor,
-    mode: str = "exact",
-    y0=None,
-    return_yf: bool = False,
-):
-    """Attack/release smoothing of a gain-reduction curve, ``mode="exact"``:
-    the true branching recursion (attack when g[n] < y[n-1], release
-    otherwise), as a sequential loop over time.
-
-    This is the plain PyTorch version of the ballistics kernel
-    (:func:`~dasp_tpu_torch.ops.ballistics_kernel.ballistics_rows_plain`),
-    differentiable by autograd and run on the tensors' own device. The
-    JAX package's ``"parallel"`` and ``"attack_only"`` modes are not ported
-    yet (see ROADMAP.md).
-
-    Args:
-        g: gain-reduction curve in dB, shape (bs, ch, T).
-        alpha_attack / alpha_release: coefficients broadcastable to
-            (bs, 1, 1).
-        mode: "exact".
-        y0: carried state ``(y_attack_pass, y_main)`` from a previous chunk,
-            each of shape g.shape[:-1] (only ``y_main`` is used); None = rest.
-        return_yf: also return the final state ``(y[..., -1], y[..., -1])``.
-    """
-    if mode != "exact":
-        raise ValueError(
-            f"ballistics mode {mode!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 9); the port has mode='exact'"
-        )
-    bs, ch, T = g.shape
-    R = bs * ch
-
-    def rows(alpha):
-        alpha = torch.as_tensor(alpha, dtype=g.dtype, device=g.device)
-        return torch.broadcast_to(alpha, g.shape)[..., 0].reshape(R)
-
-    ym0 = None if y0 is None else y0[1]
-    y0_rows = g.new_zeros(R) if ym0 is None else ym0.reshape(R).to(g.dtype)
-    y = ballistics_rows_plain(
-        g.reshape(R, T), rows(alpha_attack), rows(alpha_release), y0_rows
-    ).reshape(g.shape)
-    if return_yf:
-        return y, (y[..., -1], y[..., -1])
-    return y
 
 
 # ---------------------------------------------------------------------------
@@ -516,3 +482,337 @@ def lfilter1_blockmat(
 
     yb = c + apow[:, None, 1 : L + 1] * v_prev[..., None]
     return yb.reshape(R, Tp)[:, :T].reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# first-order scans, ballistics and the peak-decay follower
+# ---------------------------------------------------------------------------
+
+
+def _first_order_scan(decay: torch.Tensor, drive: torch.Tensor) -> torch.Tensor:
+    """y[n] = decay[n] y[n-1] + drive[n] (y[-1] = 0) along the last
+    dimension, by one associative scan; both (..., T) of one shape."""
+    _, y = associative_scan(_affine_combine_scalar, (decay, drive), drive.ndim - 1)
+    return y
+
+
+def _like(v, x: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+
+
+def onepole_exact(x: torch.Tensor, alpha, y0: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact one-pole lowpass smoother y[n] = (1 - alpha) x[n] + alpha y[n-1].
+
+    ``alpha`` broadcasts against ``x`` (e.g. (bs, 1, 1) against
+    (bs, 1, T)). ``y0`` is the carried y[-1] (shape x.shape[:-1]; None =
+    from rest), so chunk-chained evaluation follows one pass.
+    """
+    alpha = torch.broadcast_to(_like(alpha, x), x.shape)
+    drive = (1.0 - alpha) * x
+    if y0 is not None:
+        first = drive[..., :1] + alpha[..., :1] * y0[..., None]
+        drive = torch.cat([first, drive[..., 1:]], dim=-1)
+    return _first_order_scan(alpha, drive)
+
+
+def onepole_varying(x: torch.Tensor, alpha, y0: torch.Tensor | None = None) -> torch.Tensor:
+    """One-pole smoother with a per-sample coefficient alpha[n]: the
+    recursion of :func:`onepole_exact` (which broadcasts any alpha), under
+    the JAX package's name."""
+    return onepole_exact(x, alpha, y0=y0)
+
+
+def lfilter1_exact(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Exact first-order IIR y[n] = b0 x[n] + b1 x[n-1] - a1 y[n-1] by one
+    associative scan, in x's dtype.
+
+    Args:
+        x: signal (..., T).
+        b: numerator (..., 2), broadcastable against x's leading dims.
+        a: denominator (..., 2) with a0 == 1.
+    """
+    x_prev = nnf.pad(x, (1, 0))[..., :-1]
+    drive = b[..., 0:1] * x + b[..., 1:2] * x_prev
+    decay = torch.broadcast_to(-a[..., 1:2], drive.shape)
+    return _first_order_scan(decay, drive)
+
+
+def ballistics_smooth(
+    g: torch.Tensor,
+    alpha_attack,
+    alpha_release,
+    mode: str = "parallel",
+    y0=None,
+    return_yf: bool = False,
+):
+    """Attack/release smoothing of a gain-reduction curve, in the JAX
+    package's three modes:
+
+      * ``"parallel"`` (the default): the attack-coefficient one-pole, then
+        per sample attack where g[n] is below that envelope delayed by one
+        sample, release otherwise, and one time-varying one-pole
+        (:func:`onepole_varying`); two associative scans, close to the
+        branching recursion;
+      * ``"exact"``: the branching recursion itself (attack when
+        g[n] < y[n-1]), a sequential loop over time; the plain version of
+        the ballistics kernel
+        (:func:`~dasp_tpu_torch.ops.ballistics_kernel.ballistics_rows_plain`);
+      * ``"attack_only"``: the attack-coefficient one-pole alone.
+
+    All are differentiable by autograd on the tensors' own device.
+
+    Args:
+        g: gain-reduction curve in dB, shape (bs, ch, T).
+        alpha_attack / alpha_release: coefficients broadcastable to g
+            (e.g. (bs, 1, 1)).
+        mode: "parallel", "exact" or "attack_only".
+        y0: carried state ``(y_attack_pass, y_main)`` from a previous chunk,
+            each of shape g.shape[:-1]; "parallel" needs both (its branch
+            compares against the delayed attack pass, which crosses the
+            chunk boundary), the others use ``y_main``; None = from rest.
+        return_yf: also return the final state tuple.
+
+    Returns:
+        Smoothed curve, same shape as g; with ``return_yf`` a tuple
+        ``(y, (ya_f, ym_f))``.
+    """
+    ya0, ym0 = (None, None) if y0 is None else y0
+
+    if mode == "attack_only":
+        y = onepole_exact(g, alpha_attack, y0=ym0)
+        return (y, (y[..., -1], y[..., -1])) if return_yf else y
+
+    if mode == "parallel":
+        y_a = onepole_exact(g, alpha_attack, y0=ya0)
+        # y[n-1]'s stand-in: the attack pass delayed one sample; the first
+        # slot takes the previous chunk's last attack-pass value (0 at rest)
+        first = torch.zeros_like(y_a[..., :1]) if ya0 is None else ya0[..., None].to(g.dtype)
+        y_prev = torch.cat([first, y_a[..., :-1]], dim=-1)
+        alpha = torch.where(g < y_prev, torch.broadcast_to(_like(alpha_attack, g), g.shape),
+                            torch.broadcast_to(_like(alpha_release, g), g.shape))
+        y = onepole_varying(g, alpha, y0=ym0)
+        return (y, (y_a[..., -1], y[..., -1])) if return_yf else y
+
+    if mode != "exact":
+        raise ValueError(f"Unknown ballistics mode: {mode!r}")
+    bs, ch, T = g.shape
+    R = bs * ch
+
+    def rows(alpha):
+        return torch.broadcast_to(_like(alpha, g), g.shape)[..., 0].reshape(R)
+
+    y0_rows = g.new_zeros(R) if ym0 is None else ym0.reshape(R).to(g.dtype)
+    y = ballistics_rows_plain(
+        g.reshape(R, T), rows(alpha_attack), rows(alpha_release), y0_rows
+    ).reshape(g.shape)
+    return (y, (y[..., -1], y[..., -1])) if return_yf else y
+
+
+def _max_combine(a, b):
+    return (torch.maximum(a[0], b[0]),)
+
+
+def running_max(x: torch.Tensor, dim: int, reverse: bool = False) -> torch.Tensor:
+    """The running maximum of ``x`` along ``dim`` (from the end with
+    ``reverse``), as ``lax.cummax``: an associative scan with
+    ``torch.maximum``, whose backward splits a tie's gradient between the
+    tied elements as JAX's does (``torch.cummax`` gives it all to the last
+    one)."""
+    if reverse:
+        return torch.flip(running_max(torch.flip(x, (dim,)), dim), (dim,))
+    return associative_scan(_max_combine, (x,), dim)[0]
+
+
+def peak_decay(g: torch.Tensor, delta, y0: torch.Tensor | None = None, return_yf: bool = False):
+    """Peak envelope with linear decay, ``y[n] = max(g[n], y[n-1] - delta)``:
+    instant rise, a fall of ``delta`` per sample.
+
+    The max-plus recursion has the exact parallel form
+    ``y[n] = cummax(g[k] + delta k)[n] - delta n``, one running max
+    (:func:`running_max`). Gradients flow to g (to the maximum, a tie's
+    split as in JAX) and to delta.
+
+    Args:
+        g: envelope input, shape (bs, ..., T).
+        delta: decay per sample (>= 0), broadcastable to g (e.g. (bs, 1, 1)).
+        y0: carried y[-1] from a previous chunk (shape g.shape[:-1]; None =
+            from rest at g[..., 0]).
+        return_yf: also return y[..., -1] (the streaming state).
+
+    The ramp grows as ``delta * n``: in fp32 keep ``delta * T`` below about
+    1e4 per call (chunked evaluation restarts it every chunk).
+    """
+    T = g.shape[-1]
+    delta = _like(delta, g)
+    ramp = delta * torch.arange(T, dtype=g.dtype, device=g.device)
+    y = running_max(g + ramp, g.ndim - 1) - ramp
+    if y0 is not None:
+        y = torch.maximum(y, y0[..., None] - delta * torch.arange(1, T + 1, dtype=g.dtype, device=g.device))
+    return (y, y[..., -1]) if return_yf else y
+
+
+# ---------------------------------------------------------------------------
+# the coupled-form block-state cascade
+# ---------------------------------------------------------------------------
+
+
+def _coupled_state_space(sos: torch.Tensor):
+    """Per-section 2-state realization (A, bvec, cvec, d) of a biquad.
+
+    Sections with a complex-conjugate pole pair (disc = a1^2 - 4 a2 < 0,
+    every resonant design) get the Gold-Rader coupled form, whose
+    transition ``[[re, -im], [im, re]]`` is a decaying rotation: its powers
+    never exceed 1, where the direct form's AR impulse response swings
+    through about 1/im near the unit circle. Real-pole sections keep the
+    controller-canonical realization, well conditioned where the coupled
+    form degenerates.
+
+    The recursion is ``s[n] = A s[n-1] + bvec x[n]``,
+    ``y[n] = d x[n] + cvec . s[n-1]``.
+
+    Args:
+        sos: (..., 6) normalized [b0, b1, b2, 1, a1, a2].
+
+    Returns:
+        A (..., 2, 2), bvec (..., 2), cvec (..., 2), d (...,).
+    """
+    b0, b1, b2 = sos[..., 0], sos[..., 1], sos[..., 2]
+    a1, a2 = sos[..., 4], sos[..., 5]
+    be1 = b1 - b0 * a1
+    be2 = b2 - b0 * a2
+
+    disc = a1 * a1 - 4.0 * a2
+    is_cplx = disc < 0.0
+    # both branches stay finite for every input, or the unused one would
+    # poison the gradient through the select
+    re = -a1 / 2.0
+    im = torch.sqrt(torch.clamp(-disc, min=1e-30)) / 2.0
+    im_safe = torch.clamp(im, min=1e-12)
+    r_re = be1 / 2.0
+    r_im = -(be1 * re + be2) / (2.0 * im_safe)
+
+    one = torch.ones_like(a1)
+    zero = torch.zeros_like(a1)
+
+    def mat(r0c0, r0c1, r1c0, r1c1):
+        return torch.stack([torch.stack([r0c0, r0c1], -1), torch.stack([r1c0, r1c1], -1)], -2)
+
+    A = torch.where(is_cplx[..., None, None], mat(re, -im, im, re), mat(-a1, -a2, one, zero))
+    bvec = torch.where(is_cplx[..., None], torch.stack([r_re, r_im], -1), torch.stack([one, zero], -1))
+    cvec = torch.where(is_cplx[..., None], torch.stack([2.0 * one, zero], -1), torch.stack([be1, be2], -1))
+    return A, bvec, cvec, b0
+
+
+def _matrix_powers(A: torch.Tensor, n: int) -> torch.Tensor:
+    """A^0 .. A^(n-1) of (..., 2, 2) matrices as (..., n, 2, 2), by
+    doubling the table (log2(n) batched products)."""
+    P = torch.eye(2, dtype=A.dtype, device=A.device).expand(*A.shape[:-2], 1, 2, 2)
+    Ak = A  # A^(the table's length)
+    while P.shape[-3] < n:
+        P = torch.cat([P, torch.matmul(Ak[..., None, :, :], P)], dim=-3)
+        Ak = torch.matmul(Ak, Ak)
+    return P[..., :n, :, :]
+
+
+def _sosfilt_coupled_rows(sos_rows, rows, L, zi_rows):
+    """The coupled-form cascade on (R, T) rows with (R, S, 6) sections and
+    an (R, S, 2) initial state, in the inputs' dtype; returns the output
+    (R, T) and the final state (R, S, 2)."""
+    R, T = rows.shape
+    S = sos_rows.shape[1]
+    xp = nnf.pad(rows, (0, (-T) % L))
+    Tp = xp.shape[-1]
+    nb = Tp // L
+
+    A, bvec, cvec, d = _coupled_state_space(sos_rows)  # (R, S, 2, 2), (R, S, 2), (R, S, 2), (R, S)
+    P = _matrix_powers(A, L)  # (R, S, L, 2, 2): A^k
+    cA = torch.einsum("rsi,rskij->rskj", cvec, P)  # cvec A^k: the output injection rows
+    Ab = torch.einsum("rskij,rsj->rski", P, bvec)  # A^k bvec
+    A_L = torch.matmul(A, P[:, :, L - 1])
+
+    # impulse response t[0] = d, t[m] = cvec A^(m-1) bvec, and the Toeplitz
+    # operator Tt[j, k] = t[k - j] (k >= j)
+    t = torch.cat([d[..., None], (cA[:, :, : L - 1] * bvec[:, :, None, :]).sum(-1)], dim=-1)  # (R, S, L)
+    k = torch.arange(L, device=rows.device)
+    dd = k[None, :] - k[:, None]
+    Tt = t[..., dd.clamp(0, L - 1)] * (dd >= 0).to(t.dtype)  # (R, S, L, L)
+    q = torch.flip(Ab, (2,))  # state-increment columns q[j] = A^(L-1-j) bvec
+
+    y = xp
+    zf = []
+    for s in range(S):
+        yb = y.reshape(R, nb, L)
+        c = torch.matmul(yb, Tt[:, s])  # (R, nb, L)
+        w = torch.matmul(yb, q[:, s])  # (R, nb, 2): the state increment of each block
+        z_s, A_s = zi_rows[:, s], A_L[:, s]
+        # the incoming state folds into block 0's increment
+        w0 = w[:, 0] + (A_s * z_s[:, None, :]).sum(-1)
+        v = lti_affine_scan(A_s, torch.cat([w0[:, None], w[:, 1:]], dim=1))
+        v_prev = torch.cat([z_s[:, None], v[:, : nb - 1]], dim=1)  # the state entering each block
+        y = (c + torch.matmul(v_prev, cA[:, s].transpose(-1, -2))).reshape(R, Tp)
+        zf.append(v[:, -1])
+    return y[:, :T], torch.stack(zf, dim=1)
+
+
+def sosfilt_coupled(
+    sos: torch.Tensor,
+    x: torch.Tensor,
+    block: int = 128,
+    stabilize: bool = True,
+    zi: torch.Tensor | None = None,
+    return_zf: bool = False,
+):
+    """Exact biquad cascade by the block-state formulation on the coupled
+    realization (:func:`_coupled_state_space`).
+
+    The algorithmic shape of :func:`sosfilt_blockmat`, one batched
+    lower-triangular Toeplitz matmul per section and a 2x2 scan across
+    blocks (:func:`lti_affine_scan`), but built on the section's full
+    impulse response t[0] = d, t[m] = cvec A^(m-1) bvec (near a delta for
+    audio EQ sections, where the direct form's AR response reaches about
+    1/im), on transition powers that are decaying rotations, and with the
+    per-block state increment as two more matmul columns
+    q[j] = A^(L-1-j) bvec. A^k for k < L comes from a doubling table, A^L
+    from it. A Python loop runs the S sections in turn.
+
+    It computes in float64 and rounds the output once (see the module
+    docstring); ``_sosfilt_coupled_rows`` computes in its inputs' dtype.
+
+    Streaming: the realization state s holds the whole past (the Toeplitz
+    operator carries the full impulse response). Pass ``zi`` of shape
+    ``x.shape[:-1] + (n_sections, 2)`` (zeros == rest) and set
+    ``return_zf`` to carry it across chunks; it is opaque realization
+    state, not ``sosfilt_blockmat``'s. The JAX package's
+    ``seq_axis_name`` (a time axis sharded across devices) belongs to the
+    parallel layer and is not ported.
+
+    Args:
+        sos: (bs, n_sections, 6) with a0 normalized to 1.
+        x: signal (bs, ..., T).
+        block: intra-block length L.
+        stabilize: clamp denominators into the stability triangle first
+            (:func:`stabilize_sos`).
+        zi: initial state, shape x.shape[:-1] + (n_sections, 2).
+        return_zf: also return the final state (needs T to be a multiple
+            of ``block``).
+
+    Returns:
+        Filtered signal, same shape as x; with ``return_zf`` a tuple
+        ``(y, zf)``.
+    """
+    if stabilize:
+        sos = stabilize_sos(sos)
+    T = x.shape[-1]
+    rows, sos_rows = _fold_rows(x.to(WORK_DTYPE), sos.to(WORK_DTYPE))
+    R, S = rows.shape[0], sos_rows.shape[1]
+    if return_zf and T % block:
+        raise ValueError(
+            f"return_zf requires T ({T}) to be a multiple of block ({block}); "
+            "pick a streaming chunk size that divides by the block length"
+        )
+    zi_rows = rows.new_zeros((R, S, 2)) if zi is None else zi.to(WORK_DTYPE).reshape(R, S, 2)
+    y, zf = _sosfilt_coupled_rows(sos_rows, rows, block, zi_rows)
+    y = y.reshape(x.shape).to(x.dtype)
+    if return_zf:
+        return y, zf.reshape(*x.shape[:-1], S, 2).to(x.dtype)
+    return y

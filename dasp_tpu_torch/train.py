@@ -30,6 +30,18 @@ parameters (no gradient), run the ``ParameterNetwork`` preset in train mode
 on it, re-render with the prediction, the default STFT loss, backward and
 Adam. With ``PitchShift`` or ``Chorus`` one step launches the
 fractional-delay kernel twice (both renders) and its backward once.
+
+The mastering-dynamics step (:func:`mastering_step`) is the one of
+``examples/mastering.py`` without its dynamic EQ: ``Chain([TransientShaper,
+MultibandCompressor, Exciter, Limiter])`` at their defaults, driven by
+logits ``z`` through a sigmoid, the MR-STFT loss plus 10 x the MSE against
+a target rendered from hidden parameters, backward and Adam at 2e-2. Here
+the step renders its target (no gradient), as the blind step does. One
+step launches the ballistics kernel twice (the Limiter in both renders)
+and its backward once; the rest of the chain runs the port's plain
+PyTorch paths (``"coupled"`` crossovers and high-pass, the ``"block"``
+one-pole of the band compressors, ``"parallel"`` ballistics and
+``peak_decay`` in the transient shaper).
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from .models import ParameterNetwork, StyleTransferNet, apply_style_chain, make_style_processors
+from .modules import Chain, Exciter, Limiter, MultibandCompressor, TransientShaper
 from .utils.loss import multi_resolution_stft_loss, stft_loss
 
 __all__ = [
@@ -50,6 +63,9 @@ __all__ = [
     "make_blind_estimation",
     "blind_estimation_loss",
     "blind_estimation_step",
+    "make_mastering_dynamics",
+    "mastering_loss",
+    "mastering_step",
 ]
 
 # the JAX package's smoke-scale net and IR (bench.py --smoke, examples --smoke)
@@ -261,3 +277,60 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
     mark("optimizer")
     param_l1 = torch.mean(torch.abs(p_hat.detach() - rand_params))
     return loss.detach(), param_l1
+
+
+def make_mastering_dynamics(sample_rate: int = 44100, *, bs: int = 1, device=None, lr: float = 2e-2,
+                            limiter_smoother: str = "exact_pallas"):
+    """The chain, the logits and the optimizer of the mastering-dynamics
+    step: ``Chain([TransientShaper, MultibandCompressor, Exciter, Limiter])``
+    at their defaults (29 normalized parameters; ``limiter_smoother="exact"``
+    selects the ballistics kernel's plain version), logits ``z`` of shape
+    (bs, 29) at zero (every parameter at the middle of its range) on
+    ``device`` (None means the CUDA card, and raises without one), and Adam
+    at ``lr`` with optax.adam's defaults.
+
+    Returns:
+        ``(chain, z, opt)``.
+    """
+    chain = Chain([TransientShaper(sample_rate), MultibandCompressor(sample_rate), Exciter(sample_rate),
+                   Limiter(sample_rate, smoother=limiter_smoother)])
+    z = torch.zeros((bs, chain.num_params), device=_entry_device(device), requires_grad=True)
+    opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return chain, z, opt
+
+
+def mastering_loss(chain, z: torch.Tensor, mix: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The render of ``mix`` with parameters ``sigmoid(z)`` and its loss,
+    MR-STFT + 10 x MSE against ``target`` (examples/mastering.py)."""
+    y = chain.process_normalized(mix, torch.sigmoid(z), clip_params=True)
+    return multi_resolution_stft_loss(y, target) + 10.0 * torch.mean((y - target) ** 2)
+
+
+def mastering_step(chain, z: torch.Tensor, opt: torch.optim.Optimizer, mix: torch.Tensor,
+                   p_true: torch.Tensor, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    """One mastering-dynamics step (see the module docstring): the target
+    rendered from the hidden normalized parameters ``p_true`` (no
+    gradient), the loss of the render from ``z``, backward, Adam. Updates
+    ``z`` and the optimizer's state in place.
+
+    Args:
+        mix: the program, (bs, chs, T).
+        p_true: hidden normalized parameters, (bs, chain.num_params).
+        mark: called with "target", "forward", "backward" and "optimizer"
+            as each part ends (e.g. to record CUDA events).
+
+    Returns:
+        The loss, detached.
+    """
+    mark = mark or (lambda name: None)
+    with torch.no_grad():
+        target = chain.process_normalized(mix, p_true, clip_params=True)
+    mark("target")
+    loss = mastering_loss(chain, z, mix, target)
+    mark("forward")
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    mark("backward")
+    opt.step()
+    mark("optimizer")
+    return loss.detach()

@@ -220,8 +220,8 @@ def test_processor_checks_width_and_range():
 
 
 @pytest.mark.parametrize("make,option", [
-    (lambda: P.ParametricEQ(SR, filter_method="coupled"), "coupled"),
-    (lambda: P.Compressor(SR, smoother="parallel"), "parallel"),
+    (lambda: P.ParametricEQ(SR, filter_method=lambda sos, x: x), "callable filter_method"),
+    (lambda: P.Compressor(SR, smoother=lambda g, aa, ar: g), "callable smoother"),
 ])
 def test_unported_options_raise(make, option):
     proc = make()

@@ -38,14 +38,10 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 # public names of dasp_tpu that the port does not have yet; each PR that
 # ports one takes it out (ROADMAP.md Queue 1)
 NOT_YET_PORTED = {
-    "AdvancedDistortion", "AutoWah", "Bitcrusher", "Clipper", "ConvolutionReverb", "DeEsser", "Delay",
-    "DynamicEQ", "Exciter", "Expander", "GraphicEQ", "Limiter", "MultibandCompressor", "NoiseGate", "Phaser",
-    "PitchShiftPV", "RingModulator", "SidechainCompressor", "SpectralGate", "StereoImager", "TimeStretch",
-    "TransientShaper", "Tremolo", "WowFlutter",
-    "advanced_distortion", "auto_wah", "bitcrusher", "clipper", "convolution_reverb", "de_esser", "delay",
-    "dynamic_eq", "exciter", "expander", "graphic_eq", "limiter", "multiband_compressor", "noise_gate",
-    "phaser", "pitch_shift_pv", "ring_modulator", "sidechain_compressor", "spectral_gate",
-    "spectral_noise_profile", "stereo_imager", "time_stretch", "transient_shaper", "tremolo", "wow_flutter",
+    "AutoWah", "ConvolutionReverb", "Delay", "DynamicEQ", "Phaser", "PitchShiftPV", "RingModulator",
+    "SpectralGate", "StereoImager", "TimeStretch", "Tremolo", "WowFlutter",
+    "auto_wah", "convolution_reverb", "delay", "dynamic_eq", "phaser", "pitch_shift_pv", "ring_modulator",
+    "spectral_gate", "spectral_noise_profile", "stereo_imager", "time_stretch", "tremolo", "wow_flutter",
 }
 # subpackages of the port that the JAX package's top level does not name
 PORT_ONLY = {"models", "modules", "train", "utils"}
