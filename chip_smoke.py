@@ -103,9 +103,10 @@ width:
            kernel B, expander, sidechain compressor, noise gate, de-esser
            and limiter, its smoother the plain recursion in float64 by
            ballistics_float64, itself held to the plain loop first: the
-           loop takes about 50 s a call on the card; the bitcrusher, whose
-           tick grid rounds in the input's dtype, against itself in fp32
-           on CPU copies); exact B launches (one forward,
+           loop takes about 50 s a call on the card; the bitcrusher by
+           bitcrusher_float64, its hold positions from the effect's fp32
+           clock, a one-step flip of the rounding forgiven only within
+           fp32 rounding of a half point); exact B launches (one forward,
            one backward for each kernel user, none for the others); ms a
            call, forward and forward + gradient. sosfilt_coupled on the
            graphic EQ's 10 sections at +-12 dB against float64 scipy, TF32
@@ -223,6 +224,11 @@ MASTERING_PARAMS = 29
 # phase 15: the float64 reference ballistics against the plain loop over
 # this many samples
 PLAIN_CHECK_T = 16384
+# phase 15: the bitcrusher's fp32 rounding may take a different step than
+# float64's where u = held * 2^(bit_depth - 1) lies within this share of
+# max(1, |u|) of a half point (about 16 fp32 ulps: the product's and the
+# power's roundings)
+HALF_POINT_WINDOW = 1e-6
 # launches per mastering-dynamics step: the Limiter's forward in the target
 # render and in the render, its backward once
 MASTERING_STEP_LAUNCHES = {"ballistics": 2, "ballistics_bwd": 1}
@@ -1871,6 +1877,32 @@ def ballistics_float64(g, alpha_attack, alpha_release, max_iter: int = 64):
     return onepole_varying(g, torch.where(attack, aa, ar))
 
 
+def bitcrusher_float64(x, bit_depth, sample_rate_hz, mix, return_u: bool = False):
+    """Phase 15's reference of the bitcrusher, written out on its own: the
+    hold positions from the effect's clock, which is fp32 (the tick ordinal
+    ``floor(n * r + 1e-6)`` with ``r = sample_rate_hz / sample_rate``
+    rounded to fp32), each sample holding the first sample of its tick
+    (a sorted search, not the effect's running max), then the quantizer in
+    float64: ``round(u) / 2^(bit_depth - 1)`` with ``u = held *
+    2^(bit_depth - 1)``, the smooth surrogate's gradient, and the dry/wet
+    mix. With ``return_u`` also returns ``u``."""
+    import torch
+
+    bs, chs, T = x.shape
+    r = torch.clamp((sample_rate_hz.detach().double() / SR).float(), 0.0, 1.0).reshape(bs, 1)
+    n = torch.arange(T, dtype=torch.float32, device=x.device)[None, :]
+    tick = torch.floor(n * r + 1e-6)
+    idx = torch.searchsorted(tick.contiguous(), tick.contiguous())
+    held = torch.gather(x, -1, idx[:, None, :].expand(bs, chs, T))
+    scale = torch.exp2(bit_depth - 1.0).reshape(bs, 1, 1)
+    u = held * scale
+    q_soft = u - torch.sin(2.0 * math.pi * u) / (2.0 * math.pi)
+    q = q_soft + (torch.round(u) - q_soft).detach()
+    m = mix.reshape(bs, 1, 1)
+    y = (1.0 - m) * x + m * (q / scale)
+    return (y, u.detach()) if return_u else y
+
+
 @contextlib.contextmanager
 def ballistics_replaced(fn):
     """The effects' ``smoother="exact_pallas"`` evaluated by ``fn`` while
@@ -1962,8 +1994,8 @@ def phase_dynamics(seed, device, card):
 
         t0 = time.perf_counter()
         if name == "Bitcrusher":
-            ref_name = "itself in fp32 on CPU copies"
-            y_r, g_r = leaf_grads(fn, leaves, "cpu", torch.float32)
+            ref_name = "float64 on the card by bitcrusher_float64"
+            y_r, g_r = leaf_grads(bitcrusher_float64, leaves, device, torch.float64)
         elif b_user:
             ref_name = "float64 on the card, the smoother by ballistics_float64"
             with ballistics_replaced(ballistics_float64):
@@ -1975,9 +2007,15 @@ def phase_dynamics(seed, device, card):
         ref_s = time.perf_counter() - t0
         diff = (y.to(y_r.device, y_r.dtype) - y_r).abs()
         if name == "Bitcrusher":
-            # a quantizer's rounding may flip by one step, mix / 2^(bit_depth - 1)
-            step = (params["mix"] / 2.0 ** (params["bit_depth"] - 1.0)).to(diff.device, diff.dtype).reshape(BS, 1, 1)
-            out_err = max(0.0, float((diff - step).max())) / max(1.0, float(y_r.abs().max()))
+            # the rounding may flip by one step, mix / 2^(bit_depth - 1), only
+            # where u lies within fp32 rounding of a half point
+            _, u = bitcrusher_float64(**{k: v.double() for k, v in leaves.items()}, return_u=True)
+            near_half = (u - torch.floor(u) - 0.5).abs() <= HALF_POINT_WINDOW * u.abs().clamp_min(1.0)
+            step = (params["mix"].double() / torch.exp2(params["bit_depth"].double() - 1.0)).reshape(BS, 1, 1)
+            flipped = int(((diff > 0.5 * step) & near_half).sum())
+            beyond = float((diff - torch.where(near_half, step, 0.0)).max())
+            out_err = max(0.0, beyond) / max(1.0, float(y_r.abs().max()))
+            ref_name += f"; {int(near_half.sum())} samples near a half point, {flipped} of them a step apart"
         else:
             out_err = float(diff.max()) / max(1.0, float(y_r.abs().max()))
         g_err = grad_norm_errors(g, g_r)
@@ -1987,7 +2025,7 @@ def phase_dynamics(seed, device, card):
         grad_ms = cuda_ms(lambda: leaf_grads(fn, leaves, device, torch.float32), 2)
         worst = max(g_err, key=g_err.get)
         print(f"[dynamics {name}] launches {used}; against {ref_name} ({ref_s:.1f} s): output {out_err:.3e} of "
-              f"max(1, peak)" + (" beyond one quantization step" if name == "Bitcrusher" else "")
+              f"max(1, peak)" + (" beyond the steps forgiven" if name == "Bitcrusher" else "")
               + f", gradients of their norms up to {g_err[worst]:.3e} (d{worst}); "
               + ", ".join(f"d{k} {v:.2e}" for k, v in g_err.items())
               + f" | forward {fwd_ms:.3f} ms, forward + gradient {grad_ms:.3f} ms a call | {card}")
@@ -2052,6 +2090,7 @@ def phase_mastering(seed, device, card):
     loss and gradient against the plain path."""
     import torch
 
+    from dasp_tpu_torch import modules as M
     from dasp_tpu_torch import train as TR
 
     chain, z, opt = TR.make_mastering_dynamics(SR, bs=BS, device=device)
@@ -2107,17 +2146,16 @@ def phase_mastering(seed, device, card):
     with torch.no_grad():
         target = chain.process_normalized(mix, p_true, clip_params=True)
 
-    def grads(ch, dev):
-        zz = z.detach().to(dev).clone().requires_grad_()
-        y = ch.process_normalized(mix.to(dev), torch.sigmoid(zz), clip_params=True)
-        loss = TR.mastering_loss(ch, zz, mix.to(dev), target.to(dev))
+    def grads(ch):
+        zz = z.detach().clone().requires_grad_()
+        loss, y = TR.mastering_loss(ch, zz, mix, target)
         loss.backward()
         return y.detach(), float(loss.detach()), zz.grad
 
-    y_k, loss_k, g_k = grads(chain, device)
-    plain, _, _ = TR.make_mastering_dynamics(SR, bs=BS, device=device, limiter_smoother="exact")
+    y_k, loss_k, g_k = grads(chain)
+    plain = M.Chain([M.TransientShaper(SR), M.MultibandCompressor(SR), M.Exciter(SR), M.Limiter(SR, smoother="exact")])
     t0 = time.perf_counter()
-    y_p, loss_p, g_p = grads(plain, device)
+    y_p, loss_p, g_p = grads(plain)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     peak = float(y_p.abs().max())

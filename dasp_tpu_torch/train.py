@@ -279,31 +279,33 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
     return loss.detach(), param_l1
 
 
-def make_mastering_dynamics(sample_rate: int = 44100, *, bs: int = 1, device=None, lr: float = 2e-2,
-                            limiter_smoother: str = "exact_pallas"):
+def make_mastering_dynamics(sample_rate: int = 44100, *, bs: int = 1, device=None):
     """The chain, the logits and the optimizer of the mastering-dynamics
     step: ``Chain([TransientShaper, MultibandCompressor, Exciter, Limiter])``
-    at their defaults (29 normalized parameters; ``limiter_smoother="exact"``
-    selects the ballistics kernel's plain version), logits ``z`` of shape
+    at their defaults (29 normalized parameters), logits ``z`` of shape
     (bs, 29) at zero (every parameter at the middle of its range) on
     ``device`` (None means the CUDA card, and raises without one), and Adam
-    at ``lr`` with optax.adam's defaults.
+    at 2e-2 with optax.adam's defaults.
 
     Returns:
         ``(chain, z, opt)``.
     """
     chain = Chain([TransientShaper(sample_rate), MultibandCompressor(sample_rate), Exciter(sample_rate),
-                   Limiter(sample_rate, smoother=limiter_smoother)])
+                   Limiter(sample_rate)])
     z = torch.zeros((bs, chain.num_params), device=_entry_device(device), requires_grad=True)
-    opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    opt = torch.optim.Adam([z], lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
     return chain, z, opt
 
 
-def mastering_loss(chain, z: torch.Tensor, mix: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def mastering_loss(chain, z: torch.Tensor, mix: torch.Tensor, target: torch.Tensor):
     """The render of ``mix`` with parameters ``sigmoid(z)`` and its loss,
-    MR-STFT + 10 x MSE against ``target`` (examples/mastering.py)."""
+    MR-STFT + 10 x MSE against ``target`` (examples/mastering.py).
+
+    Returns:
+        ``(loss, y)``: the loss and the render.
+    """
     y = chain.process_normalized(mix, torch.sigmoid(z), clip_params=True)
-    return multi_resolution_stft_loss(y, target) + 10.0 * torch.mean((y - target) ** 2)
+    return multi_resolution_stft_loss(y, target) + 10.0 * torch.mean((y - target) ** 2), y
 
 
 def mastering_step(chain, z: torch.Tensor, opt: torch.optim.Optimizer, mix: torch.Tensor,
@@ -326,7 +328,7 @@ def mastering_step(chain, z: torch.Tensor, opt: torch.optim.Optimizer, mix: torc
     with torch.no_grad():
         target = chain.process_normalized(mix, p_true, clip_params=True)
     mark("target")
-    loss = mastering_loss(chain, z, mix, target)
+    loss, _ = mastering_loss(chain, z, mix, target)
     mark("forward")
     opt.zero_grad(set_to_none=True)
     loss.backward()

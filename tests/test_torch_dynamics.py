@@ -8,15 +8,18 @@ bitcrusher, clipper), and the mastering-dynamics step.
 Inputs are numpy arrays from a seed, handed to both packages. Tolerances,
 with their reasons (the rules of tests/test_torch_reference_set.py):
 
-* effects and processors in fp32 against JAX: outputs 1e-5 of
+* in fp32 against JAX (the five kernel users' processors at their
+  defaults, advanced_distortion's tone-filter methods): outputs 1e-5 of
   max(1, peak) (fp32 rounding; the ballistics kernel's plain loop rounds
-  each step where XLA:CPU contracts the update into an FMA, and the
-  port's "coupled" and "block" filters compute in float64 where JAX's
-  round in fp32), gradients 1e-4 of the largest (the repo's parity bar);
-* in float64 on both sides: 1e-9 of the same scales. Functions that pick
-  a branch per sample from a comparison (the "parallel" ballistics, the
-  transient shaper's relu and caps) are held there: an ulp's difference
-  flips a branch, and the results then differ by much more than an ulp.
+  each step where JAX may contract the update into an FMA, and the port's
+  "coupled" and "block" filters compute in float64 where JAX's round in
+  fp32), gradients 1e-4 of the largest (the repo's parity bar);
+* in float64 on both sides (every effect, called directly and through
+  its processor, which share one JAX compile; the options): 1e-9 of the
+  same scales. Functions that pick a branch per sample from a comparison
+  (the "parallel" ballistics, the transient shaper's relu and caps) are
+  held there: an ulp's difference flips a branch, and the results then
+  differ by much more than an ulp.
   The transient shaper's gradient with respect to the audio is held at
   sustain = 0: where the level rises, both peak-decay followers equal it,
   so relu(pd_slow - pd_fast) sits on its kink and the sign of an ulp-scale
@@ -34,6 +37,8 @@ with their reasons (the rules of tests/test_torch_reference_set.py):
   JAX's own sits 7.9e-3 of the largest from its float64 one (the
   crossover frequencies' entries leading), the port's 9.7e-3.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +90,14 @@ def grad_of(leaf):
     return np.zeros(leaf.shape) if leaf.grad is None else leaf.grad.numpy()
 
 
+def jit(fn):
+    """jax.jit for a program that is compiled once and run once: compiled
+    without the backend's (LLVM's) optimizations, which take about a third
+    of a compile here. The values differ only in rounding (no multiply-add
+    contraction)."""
+    return lambda *args: jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
+
+
 # ---------------------------------------------------------------------------
 # the first-order scans
 # ---------------------------------------------------------------------------
@@ -102,7 +115,7 @@ def test_ballistics_default_mode_matches_jax():
     g = (-np.abs(rng.standard_normal((2, 1, 4096))) * 10).astype(np.float32)
     aa = np.full((2, 1, 1), 0.99, np.float32)
     ar = np.full((2, 1, 1), 0.9995, np.float32)
-    y_j = np.asarray(jax.jit(JI.ballistics_smooth)(jnp.asarray(g), jnp.asarray(aa), jnp.asarray(ar)))
+    y_j = np.asarray(jit(JI.ballistics_smooth)(jnp.asarray(g), jnp.asarray(aa), jnp.asarray(ar)))
     y_t = TO.ballistics_smooth(t(g), t(aa), t(ar)).numpy()
     peak_close(y_t, y_j, SCAN_TOL, "default mode")
 
@@ -125,7 +138,7 @@ def test_ballistics_modes_match_jax(mode, with_y0):
             return jnp.sum(y * w) + jnp.sum(ya) + 2.0 * jnp.sum(ym), (y, ya, ym)
 
         args = [jnp.asarray(g), jnp.asarray(aa), jnp.asarray(ar), None if y0 is None else tuple(map(jnp.asarray, y0))]
-        (_, outs_j), grads_j = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2, 3), has_aux=True))(*args)
+        (_, outs_j), grads_j = jit(jax.value_and_grad(jf, argnums=(0, 1, 2, 3), has_aux=True))(*args)
     gt, at, rt = t(g, True), t(aa, True), t(ar, True)
     y0t = None if y0 is None else tuple(t(v, True) for v in y0)
     y, (ya, ym) = TO.ballistics_smooth(gt, at, rt, mode=mode, y0=y0t, return_yf=True)
@@ -186,7 +199,7 @@ def test_first_order_scans_match_jax(name):
         args = [x, rng.standard_normal((2, 1, 2)).astype(np.float32),
                 np.concatenate([np.ones_like(a1), a1], -1)]
         jfn, tfn = JI.lfilter1_exact, TO.lfilter1_exact
-    (_, y_j), grads_j = jax.jit(jax.value_and_grad(
+    (_, y_j), grads_j = jit(jax.value_and_grad(
         lambda *a: (lambda y: (jnp.sum(y * w), y))(jfn(*a)), argnums=tuple(range(len(args))), has_aux=True))(
         *map(jnp.asarray, args))
     ts = [t(a, True) for a in args]
@@ -208,7 +221,7 @@ def test_tie_gradients_match_jax():
     all to the last tied index; the port's running_max gives JAX's."""
     v = np.array([1, 3, 3, 2, 3, 0], np.float32)
     w = np.arange(1, 7, dtype=np.float32)
-    want = np.asarray(jax.grad(lambda v: jnp.sum(jax.lax.cummax(v) * w))(jnp.asarray(v)))
+    want = np.asarray(jit(jax.grad(lambda v: jnp.sum(jax.lax.cummax(v) * w)))(jnp.asarray(v)))
     np.testing.assert_array_equal(want, [1, 8.25, 6.25, 0, 5.5, 0])
     vt = t(v, True)
     (TO.iir.running_max(vt, 0) * t(w)).sum().backward()
@@ -216,7 +229,7 @@ def test_tie_gradients_match_jax():
     vc = t(v, True)
     (torch.cummax(vc, 0).values * t(w)).sum().backward()
     assert not np.array_equal(vc.grad.numpy(), want)
-    want_rev = np.asarray(jax.grad(lambda v: jnp.sum(jax.lax.cummax(v, reverse=True) * w))(jnp.asarray(v)))
+    want_rev = np.asarray(jit(jax.grad(lambda v: jnp.sum(jax.lax.cummax(v, reverse=True) * w)))(jnp.asarray(v)))
     vr = t(v, True)
     (TO.iir.running_max(vr, 0, reverse=True) * t(w)).sum().backward()
     np.testing.assert_array_equal(vr.grad.numpy(), want_rev)
@@ -236,7 +249,7 @@ def test_peak_decay_matches_jax(with_y0):
         y, yf = JI.peak_decay(g, d, y0=y0, return_yf=True)
         return jnp.sum(y * w) + jnp.sum(yf), y
 
-    (_, y_j), gr_j = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2) if with_y0 else (0, 1), has_aux=True))(
+    (_, y_j), gr_j = jit(jax.value_and_grad(jf, argnums=(0, 1, 2) if with_y0 else (0, 1), has_aux=True))(
         jnp.asarray(g), jnp.asarray(delta), None if y0 is None else jnp.asarray(y0))
     gt, dt = t(g, True), t(delta, True)
     y0t = None if y0 is None else t(y0, True)
@@ -266,7 +279,7 @@ def test_hold_max_matches_jax(hold):
     rng = np.random.default_rng(6)
     g = np.round(gain_curve(rng, (2, 2, 2000)) / 4.0) * 4.0
     w = rng.standard_normal(g.shape).astype(np.float32)
-    (_, y_j), gr_j = jax.jit(jax.value_and_grad(
+    (_, y_j), gr_j = jit(jax.value_and_grad(
         lambda g: (lambda y: (jnp.sum(y * w), y))(JF._hold_max(g, hold)), has_aux=True))(jnp.asarray(g))
     y_j = np.asarray(y_j)
     gt = t(g, True)
@@ -289,7 +302,7 @@ def graphic_sections(rng, bs=2):
     the first row at +12 dB on every band."""
     gains = rng.uniform(-12, 12, (bs, 10)).astype(np.float32)
     gains[0] = 12.0
-    return np.asarray(JF.graphic_eq_sos(bs, jnp.float32, SR, jnp.asarray(gains))), gains
+    return np.asarray(jit(lambda g: JF.graphic_eq_sos(bs, jnp.float32, SR, g))(jnp.asarray(gains))), gains
 
 
 def scipy_sosfilt(sos, x):
@@ -309,14 +322,14 @@ def test_sosfilt_coupled_matches_scipy_and_jax():
     y_t = TO.sosfilt_coupled(t(sos), t(x)).numpy()
     assert y_t.dtype == np.float32
     peak_close(y_t, ref, SCAN_TOL, "coupled vs scipy")
-    y_j32 = np.asarray(JI.sosfilt_coupled(jnp.asarray(sos), jnp.asarray(x)))
+    y_j32 = np.asarray(jit(JI.sosfilt_coupled)(jnp.asarray(sos), jnp.asarray(x)))
     print(f"from float64 scipy, of max(1, peak): port {np.abs(y_t - ref).max() / max(1, np.abs(ref).max()):.2e}, "
           f"JAX fp32 {np.abs(y_j32 - ref).max() / max(1, np.abs(ref).max()):.2e}")
 
     w = rng.standard_normal(x.shape)
     sos64, x64 = sos.astype(np.float64), x.astype(np.float64)
     with jax_dtype("float64"):
-        (_, y_j), gr_j = jax.jit(jax.value_and_grad(
+        (_, y_j), gr_j = jit(jax.value_and_grad(
             lambda s, x: (lambda y: (jnp.sum(y * w), y))(JI.sosfilt_coupled(s, x)), argnums=(0, 1), has_aux=True))(
             jnp.asarray(sos64), jnp.asarray(x64))
         y_j = np.asarray(y_j)
@@ -344,7 +357,8 @@ def test_sosfilt_coupled_streaming_equals_one_pass():
     peak_close(torch.cat(parts, -1).numpy(), full.numpy(), 1e-12, "chunks")
     peak_close(zi.numpy(), zf_full.numpy(), 1e-12, "final state")
     with jax_dtype("float64"):
-        _, zf_j = JI.sosfilt_coupled(jnp.asarray(sos, jnp.float64), jnp.asarray(x.numpy()), return_zf=True)
+        _, zf_j = jit(lambda s, x: JI.sosfilt_coupled(s, x, return_zf=True))(jnp.asarray(sos, jnp.float64),
+                                                                          jnp.asarray(x.numpy()))
     peak_close(zf_full.numpy(), np.asarray(zf_j), 1e-9, "final state against JAX")
     with pytest.raises(ValueError, match="multiple of block"):
         TO.sosfilt_coupled(torch.tensor(sos), x[..., :1000], return_zf=True)
@@ -405,7 +419,7 @@ def run_effect_case(fn_name, x, params, options, dtype, side=None):
 
     with jax_dtype(dtype):
         vg = jax.value_and_grad(jloss, argnums=tuple(range(len(arrays))), has_aux=True)
-        (_, y_j), g_j = jax.jit(vg)(*map(jnp.asarray, arrays))
+        (_, y_j), g_j = jit(vg)(*map(jnp.asarray, arrays))
         y_j, g_j = np.asarray(y_j), [np.asarray(g) for g in g_j]
     ts = [t(a, True) for a in arrays]
     kw = dict(zip(names[1:], ts[1:]))
@@ -417,31 +431,81 @@ def run_effect_case(fn_name, x, params, options, dtype, side=None):
         grad_close(grad_of(got), want, GRAD_TOL[dtype], f"{fn_name} {options}: d{n}")
 
 
+def processor_inputs(name, T=1024, seed=12):
+    """x, normalized parameters and side inputs (float64 numpy arrays) for
+    the processor ``name`` (the transient shaper's sustain at 0, see the
+    module docstring), and the options of its float64 evaluation: the
+    kernel users with smoother "exact", the recursion of their default
+    (JAX's Pallas kernel runs only fp32)."""
+    rng = np.random.default_rng(seed)
+    proc = getattr(D, name)(SR)
+    x = rng.standard_normal((2, 2, T)) * 0.3
+    p = rng.uniform(0.05, 0.95, (2, proc.num_params))
+    if name == "TransientShaper":
+        lo, hi = proc.param_ranges["sustain"]
+        p[:, list(proc.param_ranges).index("sustain")] = -lo / (hi - lo)
+    side = {"sidechain": rng.standard_normal((2, 1, T)) * 0.5} if name == "SidechainCompressor" else {}
+    options = {"smoother": "exact"} if name in B_USERS else {}
+    return x, p, side, options
+
+
+@functools.lru_cache(maxsize=None)
+def jax_processor(name, dtype):
+    """JAX's processor ``name`` on processor_inputs in ``dtype``: the output
+    and the gradients of mean(y ** 2) with respect to x, the normalized
+    parameters and the side inputs. In float64 with processor_inputs'
+    options, in fp32 at the constructor defaults. One compile for each
+    (name, dtype), which the tests of the function and of the processor
+    share."""
+    x, p, side, options = processor_inputs(name)
+    proc = getattr(D, name)(SR, **(options if dtype == "float64" else {}))
+
+    def jloss(x, q, *s):
+        y = proc.process_normalized(x, q, **dict(zip(side, s)))
+        return jnp.mean(y ** 2), y
+
+    arrays = [np.asarray(a, dtype) for a in (x, p, *side.values())]
+    with jax_dtype(dtype):
+        (_, y_j), g_j = jit(jax.value_and_grad(jloss, argnums=tuple(range(len(arrays))), has_aux=True))(
+            *map(jnp.asarray, arrays))
+        return np.asarray(y_j), [np.asarray(g) for g in g_j]
+
+
 @pytest.mark.parametrize("name", list(FUNCTIONS))
 def test_effect_matches_jax_float64(name):
-    """Each effect in float64 on both sides (the kernel users with smoother
-    "exact", the same recursion: JAX's Pallas kernel runs only fp32; the
-    transient shaper at sustain = 0, see the module docstring)."""
-    x, params, side = effect_inputs(name, "float64", T=1024)
-    if name == "TransientShaper":
-        params["sustain"] = np.zeros_like(params["sustain"])
-    options = {"smoother": "exact"} if name in B_USERS else {}
-    run_effect_case(FUNCTIONS[name], x, params, options, "float64", side)
+    """Each effect in float64 on both sides, called with the denormalized
+    parameters (the kernel users with smoother "exact"; the transient
+    shaper at sustain = 0, see the module docstring), against JAX's
+    processor on the same values: a parameter's gradient is the
+    normalized one over the width of its range."""
+    x, p, side, options = processor_inputs(name)
+    y_j, (dx_j, dp_j, *ds_j) = jax_processor(name, "float64")
+    ranges = getattr(D, name)(SR).param_ranges
+    width = np.array([hi - lo for lo, hi in ranges.values()])
+    values = np.array([lo for lo, _ in ranges.values()]) + p * width
+    if name == "GraphicEQ":
+        params, wants = {"band_gains_db": values}, [dp_j / width]
+    else:
+        params, wants = dict(zip(ranges, values.T)), list((dp_j / width).T)
+    ts = [t(a, True) for a in (x, *params.values(), *side.values())]
+    kw = dict(zip([*params, *side], ts[1:]))
+    y_t = getattr(PF, FUNCTIONS[name])(ts[0], SR, **kw, **options)
+    (y_t ** 2).mean().backward()
+    assert y_t.dtype == torch.float64
+    peak_close(y_t.detach().numpy(), y_j, TOL["float64"], f"{name}: output")
+    for what, got, want in zip(("x", *params, *side), ts, (dx_j, *wants, *ds_j)):
+        grad_close(grad_of(got), want, GRAD_TOL["float64"], f"{name}: d{what}")
 
 
 OPTION_CASES = [
-    ("noise_gate", {"hold_ms": 5.0}),
-    ("noise_gate", {"smoother": "parallel", "hold_ms": 1.0}),
+    ("noise_gate", {"smoother": "parallel", "hold_ms": 5.0}),
     ("sidechain_compressor", {"lookahead_samples": 64}),
     ("limiter", {"lookahead_samples": 100, "smoother": "attack_only"}),
-    ("de_esser", {"mode": "wideband"}),
-    ("de_esser", {"filter_method": "block", "smoother": "parallel"}),
+    ("de_esser", {"mode": "wideband", "filter_method": "block", "smoother": "parallel"}),
     ("multiband_compressor", {"filter_method": "fsm", "smoother": "fsm"}),
     ("multiband_compressor", {"filter_method": "block", "smoother": "parallel"}),
     ("graphic_eq", {"filter_method": "block"}),
-    ("exciter", {"filter_method": "block"}),
     ("transient_shaper", {"smoother": "exact"}),
-    ("expander", {"smoother": "parallel"}),
 ]
 
 
@@ -489,36 +553,28 @@ def test_sidechain_compressor_checks_its_key():
 
 @pytest.mark.parametrize("name", list(FUNCTIONS))
 def test_processor_matches_jax(name):
-    """process_normalized at the constructor defaults in fp32 (the
-    ballistics kernel's plain loop for the five kernel users): output and
-    the gradients of mean(y ** 2) with respect to the normalized parameters
-    and x (the transient shaper's x-gradient is held in float64 above, see
-    the module docstring); ranges, the constructor record and the side
-    inputs as JAX's. None of these picks a branch by a near-tie here."""
-    rng = np.random.default_rng(12)
+    """process_normalized: ranges, the constructor record and the side
+    inputs as JAX's; in float64 (the kernel users with smoother "exact")
+    against JAX's processor, output and the gradients of mean(y ** 2) with
+    respect to x, the normalized parameters and the side inputs; for the
+    five kernel users also in fp32 at the constructor defaults, the
+    ballistics kernel's plain loop against JAX's Pallas kernel in
+    interpret mode (no branch there is decided by a near-tie)."""
     jp, tp = getattr(D, name)(SR), getattr(P, name)(SR)
     assert tp.param_ranges == jp.param_ranges
     assert tp._init_spec == jp._init_spec
     assert tp.consumes_kwargs == jp.consumes_kwargs
-    x = (rng.standard_normal((2, 2, 2048)) * 0.3).astype(np.float32)
-    p = rng.uniform(0.05, 0.95, (2, tp.num_params)).astype(np.float32)
-    side = {"sidechain": (rng.standard_normal((2, 1, 2048)) * 0.5).astype(np.float32)} \
-        if name == "SidechainCompressor" else {}
-
-    def jloss(x, q, *s):
-        y = jp.process_normalized(x, q, **dict(zip(side, s)))
-        return jnp.mean(y ** 2), y
-
-    arrays = (x, p, *side.values())
-    (_, y_j), g_j = jax.jit(jax.value_and_grad(jloss, argnums=tuple(range(len(arrays))), has_aux=True))(
-        *map(jnp.asarray, arrays))
-    ts = [t(a, True) for a in arrays]
-    y_t = tp.process_normalized(ts[0], ts[1], **dict(zip(side, ts[2:])))
-    (y_t ** 2).mean().backward()
-    peak_close(y_t.detach().numpy(), np.asarray(y_j), TOL["float32"], name)
-    for what, got, want in zip(("x", "p", *side), ts, g_j):
-        if not (what == "x" and name == "TransientShaper"):
-            grad_close(grad_of(got), np.asarray(want), GRAD_TOL["float32"], f"{name} d{what}")
+    x, p, side, options = processor_inputs(name)
+    for dtype in ("float64", "float32") if name in B_USERS else ("float64",):
+        y_j, g_j = jax_processor(name, dtype)
+        ts = [t(np.asarray(a, dtype), True) for a in (x, p, *side.values())]
+        proc = getattr(P, name)(SR, **(options if dtype == "float64" else {}))
+        y_t = proc.process_normalized(ts[0], ts[1], **dict(zip(side, ts[2:])))
+        (y_t ** 2).mean().backward()
+        assert y_t.dtype == ts[0].dtype
+        peak_close(y_t.detach().numpy(), y_j, TOL[dtype], f"{name} {dtype}")
+        for what, got, want in zip(("x", "p", *side), ts, g_j):
+            grad_close(grad_of(got), want, GRAD_TOL[dtype], f"{name} {dtype} d{what}")
 
 
 SPECS = [
@@ -570,55 +626,54 @@ def test_chain_forwards_the_sidechain():
 # ---------------------------------------------------------------------------
 
 
-def jax_mastering_step(dtype, limiter_smoother):
-    """examples/mastering.py's chain without its dynamic EQ: a jitted
-    function of (z, mix, p_true) giving the target, the loss and dz."""
+def jax_mastering_loss():
+    """examples/mastering.py's chain without its dynamic EQ, its limiter
+    "exact": a function of (z, mix, target) giving the loss, the render and
+    dz."""
     chain = D.Chain([D.TransientShaper(SR), D.MultibandCompressor(SR), D.Exciter(SR),
-                     D.Limiter(SR, smoother=limiter_smoother)])
+                     D.Limiter(SR, smoother="exact")])
 
     def loss(z, mix, target):
         y = chain.process_normalized(mix, jax.nn.sigmoid(z), clip_params=True)
-        return j_mrstft(y, target) + 10.0 * jnp.mean((y - target) ** 2)
+        return j_mrstft(y, target) + 10.0 * jnp.mean((y - target) ** 2), y
 
-    def step(z, mix, p_true):
-        target = chain.process_normalized(mix, p_true, clip_params=True)
-        return target, *jax.value_and_grad(loss)(z, mix, target)
-
-    return jax.jit(step)
+    return jit(jax.value_and_grad(loss, has_aux=True))
 
 
 def test_mastering_step_matches_jax():
     """examples/mastering.py's step without its dynamic EQ, at smoke size
     (bs 2 stereo clips of 4096 samples), in float64 on both sides with the
     limiter "exact" (JAX's kernel is fp32 only; the fp32 kernel path of
-    each member is held by test_processor_matches_jax): the target from
-    hidden parameters, the loss and the gradient of z at a z off the
-    middle, and z after one Adam step (optax.adam at 2e-2) against
-    torch.optim.Adam."""
+    each member is held by test_processor_matches_jax): mastering_step's
+    loss, the gradient of z it leaves, and z after its Adam step (optax.adam
+    at 2e-2); the render of mastering_loss. JAX's loss and render take the
+    port's target (the chain's render from hidden parameters, the same
+    function as the render)."""
     rng = np.random.default_rng(15)
-    dtype, smoother = "float64", "exact"
+    dtype = "float64"
     mix = (rng.standard_normal((2, 2, 4096)) * 0.25).astype(dtype)
     p_true = np.clip(0.5 + 0.25 * rng.standard_normal((2, 29)), 0.05, 0.95).astype(dtype)
     z0 = (0.3 * rng.standard_normal((2, 29))).astype(dtype)
+
+    chain, z, opt = TR.make_mastering_dynamics(SR, bs=2, device="cpu")
+    assert chain.num_params == 29 and z.shape == (2, 29) and not z.detach().abs().max() > 0
+    chain = P.Chain([P.TransientShaper(SR), P.MultibandCompressor(SR), P.Exciter(SR), P.Limiter(SR, smoother="exact")])
+    with torch.no_grad():
+        target = chain.process_normalized(t(mix), t(p_true), clip_params=True).numpy()
     with jax_dtype(dtype):
-        target_j, l_j, g_j = jax_mastering_step(dtype, smoother)(*map(jnp.asarray, (z0, mix, p_true)))
-        target_j, l_j, g_j = np.asarray(target_j), float(l_j), np.asarray(g_j)
+        (l_j, y_j), g_j = jax_mastering_loss()(*map(jnp.asarray, (z0, mix, target)))
+        l_j, y_j, g_j = float(l_j), np.asarray(y_j), np.asarray(g_j)
     # optax.adam's first step: m and v bias-corrected to g and g^2
     z1_j = z0 - 2e-2 * g_j / (np.abs(g_j) + 1e-8)
 
-    chain, z, opt = TR.make_mastering_dynamics(SR, bs=2, device="cpu", limiter_smoother=smoother)
-    assert chain.num_params == 29 and z.shape == (2, 29) and not z.detach().abs().max() > 0
+    with torch.no_grad():
+        _, y = TR.mastering_loss(chain, t(z0), t(mix), t(target))
+    peak_close(y.numpy(), y_j, TOL[dtype], "render")
     z = t(z0, True)
     opt = torch.optim.Adam([z], lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
-    with torch.no_grad():
-        target = chain.process_normalized(t(mix), t(p_true), clip_params=True)
-    peak_close(target.numpy(), target_j, TOL[dtype], "target")
-    loss = TR.mastering_loss(chain, z, t(mix), target)
-    loss.backward()
-    assert abs(float(loss.detach()) - l_j) <= TOL[dtype] * abs(l_j), f"loss {float(loss.detach())} vs {l_j}"
+    loss = TR.mastering_step(chain, z, opt, t(mix), t(p_true))
+    assert abs(float(loss) - l_j) <= TOL[dtype] * abs(l_j), f"loss {float(loss)} vs {l_j}"
     grad_close(z.grad.numpy(), g_j, GRAD_TOL[dtype], "dz")
-    loss_s = TR.mastering_step(chain, z, opt, t(mix), t(p_true))
-    assert abs(float(loss_s) - l_j) <= TOL[dtype] * abs(l_j)
     # the first step moves each logit by the learning rate against dz's sign
     moved = z.detach().numpy() - z0
     big = np.abs(g_j) > 1e-2 * np.abs(g_j).max()
