@@ -3,8 +3,8 @@
 
 Builds the hand-written CUDA kernels from ``dasp_tpu_torch/csrc`` and drives
 the port's style-transfer render and training step, its blind estimation
-of the pitch shifter and chorus and its mastering-dynamics step at full
-width:
+of the pitch shifter and chorus, its mastering step and its denoising step
+at full width:
 
   phase 0  the card: name and power limit (nvidia-smi); fails without CUDA
   phase 1  build (nvcc, sm_90a) and load the kernels; build time
@@ -112,14 +112,36 @@ width:
            graphic EQ's 10 sections at +-12 dB against float64 scipy, TF32
            off and on, beside the same formulation computed in fp32 (the
            evidence for computing in float64)
-  phase 16 the mastering-dynamics step (examples/mastering.py's chain
-           without its dynamic EQ: TransientShaper, MultibandCompressor,
-           Exciter, Limiter; 29 logits, MR-STFT + 10 x MSE, Adam 2e-2) at bs
-           8 stereo clips of 131072 samples: 1 warm-up and 3 timed steps
-           split into target / forward + loss / backward / Adam by CUDA
-           events, exact B launches, finite loss and gradients, z changed;
-           one step's render, loss and gradient of z on the plain path
-           (limiter "exact") from the same z, batch and target
+  phase 16 the mastering step (examples/mastering.py's whole chain:
+           TransientShaper, DynamicEQ(3), MultibandCompressor, Exciter,
+           Limiter; 47 logits, MR-STFT + 10 x MSE, Adam 2e-2) at bs 8 stereo
+           clips of 131072 samples: 1 warm-up and 3 timed steps split into
+           target / forward + loss / backward / Adam by CUDA events, exact B
+           launches, finite loss and gradients, z changed; one step's
+           render, loss and gradient of z on the plain path (limiter
+           "exact") from the same z, batch and target
+  phase 17 the rest of the delay family (delay, ring modulator, tremolo,
+           stereo imager, convolution reverb with a 65536-tap IR, wow and
+           flutter) and the WOLA family (noise profile, spectral gate,
+           dynamic EQ, phaser, auto-wah, time stretch and pitch shift in
+           their processors' modes) at 8 x 2 x 131072: forward and the
+           gradient of mean(y ** 2) against the same function in float64 on
+           the card (phase 15's rules; wow_flutter's delay parameters by
+           phase 10's rule for kernel C, against float64 and the dense fp32
+           path), exact launches (kernel C for
+           wow_flutter, one forward and one backward; none for the rest), ms
+           a call, forward and forward + gradient; tv_istft(tv_stft(x)) ==
+           x to roundoff; the contractions the reference runs at
+           Precision.HIGHEST (computed in float64) the same bits with TF32
+           off and on, and their cost beside the fp32 einsum; the phase
+           vocoder's x-gradient finite on a clip with a silent first half
+  phase 18 the denoising step (examples/denoise.py: the noise profile of a
+           noise-only capture, SpectralGate with it, 4 logits, MSE, Adam
+           3e-2) at bs 8 mono clips of 131072 samples (the example's bs 1):
+           1 warm-up and 3 timed steps split into profile / forward + loss /
+           backward / Adam by CUDA events, no kernel launched, finite loss
+           and gradient, z changed; one step's loss and gradient of z
+           against float64 on the card
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -220,7 +242,7 @@ EFFECT_GRAD_FP32_TOL = 1e-2
 # TRAIN_GRAD_NORM_TOL of its norm; sosfilt_coupled within this of
 # max(1, peak) of float64 scipy
 COUPLED_TOL = 1e-5
-MASTERING_PARAMS = 29
+MASTERING_PARAMS = 47
 # phase 15: the float64 reference ballistics against the plain loop over
 # this many samples
 PLAIN_CHECK_T = 16384
@@ -229,7 +251,7 @@ PLAIN_CHECK_T = 16384
 # max(1, |u|) of a half point (about 16 fp32 ulps: the product's and the
 # power's roundings)
 HALF_POINT_WINDOW = 1e-6
-# launches per mastering-dynamics step: the Limiter's forward in the target
+# launches per mastering step: the Limiter's forward in the target
 # render and in the render, its backward once
 MASTERING_STEP_LAUNCHES = {"ballistics": 2, "ballistics_bwd": 1}
 # phase 15: processor, its function, whether it runs kernel B at its defaults
@@ -241,6 +263,26 @@ DYNAMICS = {
     "AdvancedDistortion": ("advanced_distortion", False), "Bitcrusher": ("bitcrusher", False),
     "Clipper": ("clipper", False),
 }
+
+
+# phase 17: each effect, its processor (whose ranges give the parameters;
+# None: it has none) and the options the processor sets (and time_stretch's
+# out_len, the input's length, as TimeStretch sets it)
+WOLA_DELAY = {
+    "delay": ("Delay", {}), "ring_modulator": ("RingModulator", {}), "tremolo": ("Tremolo", {}),
+    "stereo_imager": ("StereoImager", {}), "convolution_reverb": ("ConvolutionReverb", {}),
+    "wow_flutter": ("WowFlutter", {}), "spectral_noise_profile": (None, {}), "spectral_gate": ("SpectralGate", {}),
+    "dynamic_eq": ("DynamicEQ", {}), "phaser": ("Phaser", {}), "auto_wah": ("AutoWah", {}),
+    "time_stretch": ("TimeStretch", {}), "pitch_shift_pv": ("PitchShiftPV", {"max_semitones": 12.0}),
+}
+# phase 17: kernel launches of one forward and gradient (wow_flutter's delay
+# runs kernel C; no other effect launches a kernel)
+WOLA_DELAY_LAUNCHES = {"wow_flutter": {"frac_delay": 1, "frac_delay_bwd": 1}}
+# phase 17: tv_istft(tv_stft(x)) against x, of max(1, peak): fp32 FFTs of
+# 4096 points and a window whose fp32 COLA sum is 1 within 6e-8
+ROUNDTRIP_TOL = 1e-5
+# phase 18: examples/denoise.py's noise level (dB)
+DENOISE_NOISE_DB = -30.0
 
 
 # an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
@@ -1917,6 +1959,20 @@ def ballistics_replaced(fn):
         F.ballistics_pallas = kernel
 
 
+@contextlib.contextmanager
+def frac_delay_dense():
+    """The effects' fractional delay on its dense plain version (adjoint
+    "ad", no kernel) while the block runs."""
+    from dasp_tpu_torch import functional as F
+
+    matmul = F._frac_delay_matmul
+    F._frac_delay_matmul = lambda x, taps, dmax, block, **kw: matmul(x, taps, dmax, block, **{**kw, "adjoint": "ad"})
+    try:
+        yield
+    finally:
+        F._frac_delay_matmul = matmul
+
+
 def leaf_grads(fn, leaves, device, dtype, **options):
     """``fn`` on copies of ``leaves`` (a dict: "x" first) moved to
     ``device`` and ``dtype``: the output and the gradient of mean(y ** 2)
@@ -2085,15 +2141,15 @@ def phase_dynamics(seed, device, card):
 
 
 def phase_mastering(seed, device, card):
-    """Phase 16: the mastering-dynamics step at full width (the slice's
-    path): 1 warm-up and 3 timed steps, launches, and one step's render,
-    loss and gradient against the plain path."""
+    """Phase 16: the mastering step (examples/mastering.py's whole chain) at
+    full width: 1 warm-up and 3 timed steps, launches, and one step's
+    render, loss and gradient against the plain path."""
     import torch
 
     from dasp_tpu_torch import modules as M
     from dasp_tpu_torch import train as TR
 
-    chain, z, opt = TR.make_mastering_dynamics(SR, bs=BS, device=device)
+    chain, z, opt = TR.make_mastering(SR, bs=BS, device=device)
     require(chain.num_params == MASTERING_PARAMS, f"{chain.num_params} parameters, expected {MASTERING_PARAMS}")
     gen = torch.Generator(device=device).manual_seed(seed + 9)
     mixes = [0.25 * torch.randn((BS, 2, T), generator=gen, device=device) for _ in range(TRAIN_STEPS + 2)]
@@ -2153,7 +2209,8 @@ def phase_mastering(seed, device, card):
         return y.detach(), float(loss.detach()), zz.grad
 
     y_k, loss_k, g_k = grads(chain)
-    plain = M.Chain([M.TransientShaper(SR), M.MultibandCompressor(SR), M.Exciter(SR), M.Limiter(SR, smoother="exact")])
+    plain = M.Chain([M.TransientShaper(SR), M.DynamicEQ(SR, num_bands=3), M.MultibandCompressor(SR), M.Exciter(SR),
+                     M.Limiter(SR, smoother="exact")])
     t0 = time.perf_counter()
     y_p, loss_p, g_p = grads(plain)
     torch.cuda.synchronize()
@@ -2168,6 +2225,250 @@ def phase_mastering(seed, device, card):
     require(diff <= 2 * A_BOUND * peak, f"mastering output differs from the plain path by {diff:.3e}")
     require(loss_rel <= TRAIN_LOSS_TOL, f"mastering loss rel err {loss_rel:.3e} > {TRAIN_LOSS_TOL}")
     require(g_rel <= TRAIN_GRAD_NORM_TOL, f"mastering gradient rel err {g_rel:.3e} > {TRAIN_GRAD_NORM_TOL}")
+
+
+def phase_wola_delay(seed, device, card):
+    """Phase 17: the rest of the delay family and the WOLA family at full
+    width, each effect called with denormalized parameters from its
+    processor's ranges, fp32 on the card against float64 on the card, with
+    exact launches and ms a call; then the WOLA round trip, the
+    contractions the reference runs at Precision.HIGHEST with TF32 off and
+    on (and what float64 costs there), and the phase vocoder's x-gradient
+    on a clip with silence."""
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch import modules as M
+    from dasp_tpu_torch.ops import tv_istft, tv_stft
+
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    x = 0.25 * torch.randn((BS, 2, T), generator=gen, device=device)
+    ir = torch.randn((BS, IR), generator=gen, device=device) * torch.exp(
+        -torch.arange(IR, device=device) / (0.1 * SR))
+    noise = torch.randn((BS, 2, T), generator=gen, device=device)
+    failures = []
+    for fname, (pname, options) in WOLA_DELAY.items():
+        leaves, opts = {"x": x}, dict(options)
+        if pname is not None:
+            proc = getattr(M, pname)(SR)
+            p = 0.05 + 0.9 * torch.rand((BS, proc.num_params), generator=gen, device=device)
+            params = proc.denormalize_param_dict(proc.extract_param_dict(p))
+            if pname == "DynamicEQ":
+                params = {n: torch.stack([params[f"band{i}_{n}"] for i in range(proc.num_bands)], dim=-1)
+                          for n in M.DynamicEQ._NAMES}
+            leaves.update(params)
+        if fname == "convolution_reverb":
+            leaves["ir"] = ir
+        if fname == "wow_flutter":
+            opts["noise"] = noise
+        if fname == "time_stretch":
+            opts["out_len"] = T
+        effect = getattr(F, fname)
+
+        def fn(x, **kw):
+            return effect(x, **kw) if fname == "spectral_noise_profile" else effect(x, SR, **kw)
+
+        reset_launch_counts()
+        y, g = leaf_grads(fn, leaves, device, torch.float32, **opts)
+        torch.cuda.synchronize()
+        used = {k: v for k, v in launch_counts().items() if v}
+        want = WOLA_DELAY_LAUNCHES.get(fname, {})
+        t0 = time.perf_counter()
+        y_r, g_r = leaf_grads(fn, leaves, device, torch.float64, **opts)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        out_err = float((y.double() - y_r).abs().max()) / max(1.0, float(y_r.abs().max()))
+        g_err = grad_norm_errors(g, g_r)
+        limit = {k: TRAIN_GRAD_NORM_TOL for k in g_err}
+        checks = []
+        if fname == "wow_flutter":
+            # the delay parameters' gradients by phase 10's rule for kernel C:
+            # within 2 x the dense fp32 path's distance from float64 plus
+            # EFFECT_GRAD_FLOOR, and within EFFECT_GRAD_FP32_TOL of that path
+            # (where fp32 and float64 read positions straddle an integer, the
+            # two take different one-sided slopes, kernel and dense alike)
+            with frac_delay_dense():
+                _, g_d = leaf_grads(fn, leaves, device, torch.float32, **opts)
+            dense_err, vs_dense = grad_norm_errors(g_d, g_r), grad_norm_errors(g, g_d)
+            for k in g_err:
+                if k != "x":
+                    limit[k] = 2 * dense_err[k] + EFFECT_GRAD_FLOOR
+                    checks.append((vs_dense[k] <= EFFECT_GRAD_FP32_TOL, f"d{k} {vs_dense[k]:.3e} from the dense path"))
+            print(f"[wola/delay {fname}] the dense fp32 path (no kernel) from float64: "
+                  + ", ".join(f"d{k} {v:.2e}" for k, v in dense_err.items()) + "; the kernel path from it: "
+                  + ", ".join(f"d{k} {v:.2e}" for k, v in vs_dense.items()))
+        worst = max(g_err, key=lambda k: g_err[k] / limit[k])
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fn(**leaves, **opts), 3)
+        grad_ms = cuda_ms(lambda: leaf_grads(fn, leaves, device, torch.float32, **opts), 2)
+        print(f"[wola/delay {fname}] launches {used}; against float64 on the card ({ref_s:.1f} s): output "
+              f"{out_err:.3e} of max(1, peak), gradients of their norms up to {g_err[worst]:.3e} (d{worst}); "
+              + ", ".join(f"d{k} {v:.2e}" for k, v in g_err.items())
+              + f" | forward {fwd_ms:.3f} ms, forward + gradient {grad_ms:.3f} ms a call | {card}")
+        finite = bool(torch.isfinite(y).all()) and all(v is None or bool(torch.isfinite(v).all()) for v in g.values())
+        checks += [(used == want, f"launches {used}, expected {want}"), (finite, "non-finite output or gradient"),
+                   (out_err <= 2 * A_BOUND, f"output {out_err:.3e} from float64"),
+                   (g_err[worst] <= limit[worst], f"d{worst} {g_err[worst]:.3e} from float64 > {limit[worst]:.3e}")]
+        failures += [f"{fname}: {msg}" for ok, msg in checks if not ok]
+
+    # the WOLA round trip at the gate's and the phase vocoder's frames
+    with torch.no_grad():
+        back = tv_istft(tv_stft(x, 2048, 512, 4096), T, 2048, 512)
+    rt = float((back - x).abs().max()) / max(1.0, float(x.abs().max()))
+    print(f"[wola] tv_istft(tv_stft(x)) at {BS} x 2 x {T}, frames 2048 / 512: {rt:.3e} of max(1, peak) from x")
+    if not rt <= ROUNDTRIP_TOL:
+        failures.append(f"round trip {rt:.3e} > {ROUNDTRIP_TOL}")
+
+    # the contractions the reference runs at Precision.HIGHEST: the same bits
+    # with TF32 off and on, through the effects that hold them
+    p_deq = {n: torch.stack([v] * 3, dim=-1) for n, v in (
+        ("frequency_hz", torch.full((BS,), 1000.0, device=device)), ("q_factor", torch.full((BS,), 2.0, device=device)),
+        ("threshold_db", torch.full((BS,), -40.0, device=device)), ("ratio", torch.full((BS,), 4.0, device=device)),
+        ("attack_ms", torch.full((BS,), 10.0, device=device)), ("release_ms", torch.full((BS,), 100.0, device=device)))}
+    p_deq["frequency_hz"] = p_deq["frequency_hz"] * torch.tensor([0.1, 1.0, 8.0], device=device)
+    rate = 0.6 + 0.8 * torch.rand((BS,), generator=gen, device=device)
+    semis = 24.0 * torch.rand((BS,), generator=gen, device=device) - 12.0
+    for name, run in (("dynamic_eq", lambda: F.dynamic_eq(x, SR, **p_deq)),
+                      ("time_stretch (out_len)", lambda: F.time_stretch(x, SR, rate, out_len=T)),
+                      ("pitch_shift_pv (max_semitones)", lambda: F.pitch_shift_pv(x, SR, semis, max_semitones=12.0))):
+        outs = []
+        for tf32 in (False, True):
+            tf32_matmul(tf32)
+            try:
+                with torch.no_grad():
+                    outs.append(run())
+                torch.cuda.synchronize()
+            finally:
+                tf32_matmul(False)
+        same = torch.equal(outs[0], outs[1])
+        print(f"[wola] {name}: TF32 off and on {'the same bits' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{name} changes with TF32")
+
+    # what float64 costs in those contractions: _einsum_float64 against the
+    # fp32 einsum on the same operands (TF32 off), and the fp32 einsum's
+    # distance from float64 with TF32 off and on
+    X = tv_stft(x, 2048, 512, 4096)
+    nf = X.shape[2]
+    tau = torch.clamp(torch.arange(nf, device=device)[None, :] * rate[:, None], 0.0, nf - 1)
+    W = torch.relu(1.0 - torch.abs(tau[:, :, None] - torch.arange(nf, device=device)))
+    Xd = tv_stft(x, 1024, 256, 4096)
+    P_ = (Xd.real.square() + Xd.imag.square()).mean(dim=1)
+    bw = torch.rand((BS, 3, P_.shape[-1]), generator=gen, device=device) * 1e-4
+    for name, eq, a, b in (("time_stretch's hat matrix", "bof,bcfk->bcok", W, X.abs()),
+                           ("dynamic_eq's band levels", "bfk,bnk->bnf", P_, bw)):
+        truth = torch.einsum(eq, a.double(), b.double())
+        errs = {}
+        for tf32 in (False, True):
+            tf32_matmul(tf32)
+            try:
+                errs[tf32] = rel_err(torch.einsum(eq, a, b), truth)
+            finally:
+                tf32_matmul(False)
+        f64_ms = cuda_ms(lambda: F._einsum_float64(eq, a, b), 5)
+        f32_ms = cuda_ms(lambda: torch.einsum(eq, a, b), 5)
+        print(f"[wola] {name} ({eq}, {tuple(a.shape)} x {tuple(b.shape)}): float64 {f64_ms:.4f} ms a call, fp32 "
+              f"{f32_ms:.4f} ms; the fp32 einsum {errs[False]:.3e} (TF32 off) and {errs[True]:.3e} (TF32 on) of "
+              f"the largest from float64 | {card}")
+
+    # the phase vocoder's x-gradient on a clip whose first half is silent
+    silent = x.clone()
+    silent[..., : T // 2] = 0.0
+    for name, run in (("time_stretch(rate=1.25)", lambda v: F.time_stretch(v, SR, 1.25)),
+                      ("pitch_shift_pv(3.0)", lambda v: F.pitch_shift_pv(v, SR, 3.0)),
+                      ("TimeStretch", lambda v: F.time_stretch(v, SR, rate, out_len=T)),
+                      ("PitchShiftPV", lambda v: F.pitch_shift_pv(v, SR, semis, max_semitones=12.0))):
+        v = silent.clone().requires_grad_()
+        (run(v) ** 2).mean().backward()
+        bad = int((~torch.isfinite(v.grad)).sum())
+        print(f"[wola] {name} on a clip with a silent first half: {bad} non-finite x-gradient entries")
+        if bad:
+            failures.append(f"{name}: {bad} non-finite x-gradient entries on silence")
+    require(not failures, "; ".join(failures))
+
+
+def phase_denoise(seed, device, card):
+    """Phase 18: the denoising step (examples/denoise.py) at full width: 1
+    warm-up and 3 timed steps split into profile / forward + loss /
+    backward / Adam by CUDA events, no kernel launched, finite loss and
+    gradient, z changed; one step's loss and gradient of z against float64
+    on the card."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch import train as TR
+    from dasp_tpu_torch.utils import synthetic_batch
+
+    gate, z, opt = TR.make_denoise(SR, bs=BS, device=device)
+    rng = np.random.default_rng(seed + 11)
+    amp = 10.0 ** (DENOISE_NOISE_DB / 20.0)
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+
+    def batch():
+        clean = torch.tensor(synthetic_batch(rng, BS, T, SR), device=device)
+        return (clean + amp * torch.randn(clean.shape, generator=gen, device=device), clean,
+                amp * torch.randn(clean.shape, generator=gen, device=device))
+
+    batches = [batch() for _ in range(TRAIN_STEPS + 2)]
+    print(f"[denoise] SpectralGate(SR), {gate.num_params} logits from logit({list(TR.DENOISE_P0)}); bs {BS} mono "
+          f"clips of {T} samples (synthetic_batch), noise at {DENOISE_NOISE_DB} dB; MSE, Adam 3e-2")
+    loss = TR.denoise_step(gate, z, opt, *batches[0])  # warm-up
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(loss)), f"denoise warm-up loss {float(loss)}")
+    z_start = z.detach().clone()
+    names = ("profile", "forward", "backward", "optimizer")
+    reset_launch_counts()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+
+        def mark(_name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        t0 = time.perf_counter()
+        loss = TR.denoise_step(gate, z, opt, *batches[1 + i], mark=mark)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        total = marks[0].elapsed_time(marks[-1])
+        print(f"[denoise] step {i}: loss {float(loss):.6e} | " + ", ".join(f"{n} {m:.3f} ms" for n, m in zip(names, ms))
+              + f", step {total:.3f} ms (host {wall:.3f} ms) | {card}")
+        require(bool(torch.isfinite(loss)), f"denoise step {i}: loss {float(loss)}")
+        require(bool(torch.isfinite(z.grad).all()), f"denoise step {i}: non-finite gradient")
+        steps.append(total)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    print(f"[denoise] launches during the {TRAIN_STEPS} steps: {launches}")
+    require(not launches, f"denoise launches {launches}, expected none")
+    moved = float((z.detach() - z_start).abs().max())
+    require(moved > 0, "denoise: z did not change")
+    mean_ms = sum(steps) / TRAIN_STEPS
+    split = device_ms_by_kernel(lambda: TR.denoise_step(gate, z, opt, *batches[1]), (), 1)
+    print(f"[denoise] {1e3 / mean_ms:.4f} steps/s (CUDA events, mean of {TRAIN_STEPS} steps {mean_ms:.3f} ms); z "
+          f"moved up to {moved:.3e}; one step's device work (profiler) {fmt_ms(split['all'])} | {card}")
+
+    # one step's loss and gradient of z against float64 on the card
+    noisy, clean, noise_only = batches[-1]
+
+    def grads(dtype):
+        zz = z.detach().to(dtype).clone().requires_grad_()
+        with torch.no_grad():
+            prof = F.spectral_noise_profile(noise_only.to(dtype))
+        loss, _ = TR.denoise_loss(gate, zz, noisy.to(dtype), clean.to(dtype), prof)
+        loss.backward()
+        return float(loss.detach()), zz.grad
+
+    loss_k, g_k = grads(torch.float32)
+    loss_r, g_r = grads(torch.float64)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    g_rel = float((g_k.double() - g_r).norm() / g_r.norm())
+    print(f"[denoise] fp32 against float64 on the card: loss {loss_k:.9e} vs {loss_r:.9e}, rel err {loss_rel:.2e}; "
+          f"gradient of z {g_rel:.3e} of its norm")
+    require(loss_rel <= TRAIN_LOSS_TOL, f"denoise loss rel err {loss_rel:.3e} > {TRAIN_LOSS_TOL}")
+    require(g_rel <= TRAIN_GRAD_NORM_TOL, f"denoise gradient rel err {g_rel:.3e} > {TRAIN_GRAD_NORM_TOL}")
 
 
 def time_frac_delay(tree, seed, device, card):
@@ -2263,6 +2564,8 @@ def main() -> int:
     phase_reference_chain(args.seed, device, card)
     phase_dynamics(args.seed, device, card)
     phase_mastering(args.seed, device, card)
+    phase_wola_delay(args.seed, device, card)
+    phase_denoise(args.seed, device, card)
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [

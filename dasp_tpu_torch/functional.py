@@ -1,13 +1,18 @@
 """Differentiable audio effects as plain functions on (bs, ch, T) tensors.
 
-PyTorch counterpart of the parts of ``dasp_tpu/functional.py`` ported so
-far: ``gain``, ``distortion``, ``advanced_distortion``, ``parametric_eq``,
+PyTorch counterpart of ``dasp_tpu/functional.py``: ``gain``,
+``distortion``, ``advanced_distortion``, ``parametric_eq``,
 ``graphic_eq``, ``compressor``, the dynamics family (``expander``,
 ``sidechain_compressor``, ``noise_gate``, ``de_esser``, ``limiter``,
 ``multiband_compressor``, ``transient_shaper``), ``exciter``,
 ``bitcrusher``, ``clipper``, ``noise_shaped_reverberation``,
-``stereo_bus``, ``stereo_widener``, ``stereo_panner``, ``modulated_delay``
-and ``pitch_shift``. Parameters are tensors of shape (bs,) (or Python
+``convolution_reverb``, ``stereo_bus``, ``stereo_widener``,
+``stereo_panner``, ``stereo_imager``, the delay family (``delay``,
+``modulated_delay``, ``pitch_shift``, ``ring_modulator``, ``tremolo``,
+``wow_flutter``) and the time-varying (WOLA) family on
+:mod:`~dasp_tpu_torch.ops.tv_filter` (``phaser``, ``auto_wah``,
+``spectral_gate``, ``spectral_noise_profile``, ``dynamic_eq``,
+``time_stretch``, ``pitch_shift_pv``). Parameters are tensors of shape (bs,) (or Python
 scalars); gradients flow to them and to the audio by autograd, and through
 the CUDA kernels by their backward kernels.
 
@@ -22,9 +27,10 @@ batched matmuls, cuBLAS on the card, and a scan over blocks),
 ``adjoint="ad"`` are plain PyTorch on any device. ``"fsm"``, the default of
 ``parametric_eq`` and ``compressor`` as in the JAX package, is the
 reference's frequency-sampling approximation on ``torch.fft``. The JAX
-package's callable ``filter_method`` and ``smoother`` (the injection points
-of its sequence-sharded filters) are not ported and raise ``ValueError``,
-as do unknown options.
+package's callable ``filter_method`` and ``smoother`` and its
+``tv_power_fn`` / ``tv_filter_fn`` hooks (the injection points of its
+sequence-sharded filters) are not ported and raise ``ValueError``, as do
+unknown options.
 """
 
 from __future__ import annotations
@@ -39,14 +45,16 @@ from torch.utils.checkpoint import checkpoint
 from .ops.ballistics_kernel import ballistics_pallas
 from .ops.biquad import biquad, one_pole_butter_highpass, one_pole_butter_lowpass
 from .ops.fft_filter import (
+    fft_freqz,
     fft_sosfreqz,
     fsm_fft_size,
     fsm_onepole_step_response,
     lfilter_via_fsm,
+    next_pow2,
     sosfilt_via_fsm,
 )
 from .ops.filterbank import octave_band_filterbank
-from .ops.fir import fft_conv_causal, fft_correlate_valid
+from .ops.fir import fft_conv_causal, fft_correlate_valid, ola_conv_causal
 from .ops.frac_delay_kernel import frac_delay_pallas
 from .ops.iir import (
     ballistics_smooth,
@@ -62,6 +70,7 @@ from .ops.iir import (
     sosfilt_exact,
 )
 from .ops.iir_kernel import lfilter1_pallas, sosfilt_pallas
+from .ops.tv_filter import tv_analysis_window, tv_frame_centers, tv_frame_count, tv_freq_filter, tv_istft, tv_stft
 
 __all__ = [
     "db_to_linear",
@@ -96,6 +105,19 @@ __all__ = [
     "modulated_delay",
     "pitch_shift_window_samples",
     "pitch_shift",
+    "delay",
+    "ring_modulator",
+    "tremolo",
+    "stereo_imager",
+    "convolution_reverb",
+    "wow_flutter",
+    "spectral_gate",
+    "spectral_noise_profile",
+    "dynamic_eq",
+    "phaser",
+    "auto_wah",
+    "time_stretch",
+    "pitch_shift_pv",
 ]
 
 
@@ -1533,3 +1555,785 @@ def pitch_shift(
         # compensate the mean W/2-sample latency (zeros shift in at the tail)
         wet = nnf.pad(wet, (0, half))[..., half:]
     return (1.0 - mix) * x + mix * wet
+
+
+# ---------------------------------------------------------------------------
+# the rest of the delay family: feedback delay, carrier and LFO modulation,
+# multiband stereo width, user-IR convolution, tape wow and flutter
+# ---------------------------------------------------------------------------
+
+
+def _time_grid(seq_len: int, sample_rate: float, device) -> torch.Tensor:
+    """Sample times ``n / sample_rate`` in seconds, (1, 1, seq_len), rounded
+    to fp32 on the host as the JAX package's numpy constant is."""
+    n = np.arange(seq_len, dtype=np.float32)[None, None, :]
+    return torch.from_numpy(n / np.float32(sample_rate)).to(device)
+
+
+def delay(x: torch.Tensor, sample_rate: float, delay_ms, feedback, mix) -> torch.Tensor:
+    """Feedback delay (echo) with a continuous, differentiable delay time:
+    the comb ``H(z) = z^-D / (1 - fb z^-D)`` evaluated in closed form on the
+    rFFT bins of a zero-padded spectrum (``D = delay_ms * fs / 1000``
+    enters only through ``exp(-j w D)``). Echoes beyond the padded length
+    (2 x the signal) wrap around with magnitude ``fb ** (n_fft / D)``.
+
+    Args:
+        x: (bs, chs, T).
+        delay_ms: delay time (ms), fractional allowed, (bs,).
+        feedback: on [0, 1), clamped to <= 0.999, (bs,).
+        mix: dry/wet on [0, 1], (bs,).
+    """
+    bs, _, seq_len = x.shape
+    dtype, device = x.dtype, x.device
+    delay_ms, mix = _params(bs, dtype, device, delay_ms, mix)
+    feedback = torch.clamp(_param(feedback, bs, dtype, device), max=0.999)
+    n_fft = next_pow2(2 * seq_len)
+    # the response in float64, rounded once: in fp32 the phase w D of a
+    # second-long delay is off by up to 1e-2 rad
+    d_samples = delay_ms.double() * (sample_rate / 1e3)  # (bs, 1, 1)
+    omega = np.arange(n_fft // 2 + 1, dtype=np.float32) * np.float32(2.0 * np.pi / n_fft)
+    phase = torch.from_numpy(omega).to(device)[None, None, :] * d_samples  # (bs, 1, F)
+    z_d = torch.complex(torch.cos(phase), -torch.sin(phase))  # exp(-j w D)
+    mix, feedback = mix.double(), feedback.double()
+    h = (1.0 - mix) + mix * (z_d / (1.0 - feedback * z_d))
+    X = torch.fft.rfft(x, n_fft, dim=-1)
+    return torch.fft.irfft(X * h.to(X.dtype), n_fft, dim=-1)[..., :seq_len].to(dtype)
+
+
+def ring_modulator(x: torch.Tensor, sample_rate: float, frequency_hz, mix, lfo_phase: float = 0.0) -> torch.Tensor:
+    """Ring modulator: ``y = (1 - mix) x + mix x sin(2 pi f n / fs + phase)``.
+
+    Args:
+        x: (bs, chs, T).
+        frequency_hz: carrier frequency (Hz), (bs,).
+        mix: dry/wet on [0, 1], (bs,).
+        lfo_phase: initial carrier phase (radians).
+    """
+    bs, _, seq_len = x.shape
+    frequency_hz, mix = _params(bs, x.dtype, x.device, frequency_hz, mix)
+    # the carrier's phase in float64, rounded once: in fp32, 2 pi f t at
+    # kHz over seconds is off by up to 5e-3 rad
+    phase = 2.0 * np.pi * frequency_hz.double() * _time_grid(seq_len, sample_rate, x.device) + lfo_phase
+    carrier = torch.sin(phase).to(x.dtype)
+    return (((1.0 - mix) + mix * carrier) * x).to(x.dtype)
+
+
+def tremolo(x: torch.Tensor, sample_rate: float, rate_hz, depth, lfo_phase: float = 0.0) -> torch.Tensor:
+    """Tremolo: ``y = x (1 - depth (1 + sin(2 pi rate n / fs + phase)) / 2)``,
+    unity gain at the LFO's trough, ``1 - depth`` at its peak.
+
+    Args:
+        x: (bs, chs, T).
+        rate_hz: LFO rate (Hz), (bs,).
+        depth: on [0, 1], (bs,).
+        lfo_phase: initial LFO phase (radians).
+    """
+    bs, _, seq_len = x.shape
+    rate_hz, depth = _params(bs, x.dtype, x.device, rate_hz, depth)
+    lfo = 0.5 * (1.0 + torch.sin(2.0 * np.pi * rate_hz * _time_grid(seq_len, sample_rate, x.device) + lfo_phase))
+    return (x * (1.0 - depth * lfo)).to(x.dtype)
+
+
+def stereo_imager(
+    x: torch.Tensor,
+    sample_rate: float,
+    crossover_low_hz,
+    crossover_high_hz,
+    low_width,
+    mid_width,
+    high_width,
+    filter_method: str = "coupled",
+) -> torch.Tensor:
+    """Multiband stereo imager: the phase-compensated LR4 three-band split
+    (:func:`_lr4_three_band_split`), each band through
+    :func:`stereo_widener` (one call on the bands stacked on the batch
+    axis), the bands summed.
+
+    Args:
+        x: stereo audio, (bs, 2, T).
+        crossover_low_hz / crossover_high_hz: the band edges (Hz), (bs,).
+        low_width / mid_width / high_width: per-band width on (0, 1), 0.5
+            unchanged, (bs,).
+        filter_method: the crossovers' method, as :func:`multiband_compressor`'s.
+    """
+    bs, chs, _ = x.shape
+    if chs != 2:
+        raise ValueError(f"stereo_imager needs stereo input, got {chs} channels.")
+    low, mid, high = _lr4_three_band_split(x, crossover_low_hz, crossover_high_hz, sample_rate, filter_method)
+    widths = torch.cat([_param(w, bs, x.dtype, x.device).reshape(bs) for w in (low_width, mid_width, high_width)])
+    y = stereo_widener(torch.cat([low, mid, high], dim=0), sample_rate, widths)
+    return (y[:bs] + y[bs : 2 * bs] + y[2 * bs :]).to(x.dtype)
+
+
+def convolution_reverb(x: torch.Tensor, sample_rate: float, mix, ir: torch.Tensor, block: int | None = None) -> torch.Tensor:
+    """Convolution reverb with a user impulse response (gradients flow to
+    ``x``, ``mix`` and the IR): one batched FFT convolution
+    (:func:`~dasp_tpu_torch.ops.fft_conv_causal`), or overlap-save blocks
+    of ``block`` samples (:func:`~dasp_tpu_torch.ops.ola_conv_causal`).
+
+    Args:
+        x: (bs, chs, T). sample_rate: unused.
+        mix: dry/wet on [0, 1], (bs,).
+        ir: impulse response, (K,), (bs, K) or (bs, chs, K).
+        block: overlap-save block length, or None for one FFT.
+    """
+    dtype, device = x.dtype, x.device
+    mix = _param(mix, x.shape[0], dtype, device)
+    ir = torch.as_tensor(ir, dtype=dtype, device=device)
+    if ir.ndim == 1:
+        ir = ir[None, None, :]
+    elif ir.ndim == 2:
+        ir = ir[:, None, :]
+    wet = fft_conv_causal(x, ir) if block is None else ola_conv_causal(x, ir, block=block)
+    return ((1.0 - mix) * x + mix * wet).to(dtype)
+
+
+def wow_flutter(
+    x: torch.Tensor,
+    sample_rate: float,
+    wow_depth_ms,
+    flutter_depth_ms,
+    wow_rate_hz=0.8,
+    flutter_rate_hz=8.0,
+    base_ms: float = 5.0,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+    block: int = 512,
+) -> torch.Tensor:
+    """Tape wow and flutter: a fractional delay line around ``base_ms``
+    whose read position drifts by two band-limited noise processes (white
+    noise one-pole-lowpassed at each rate, :func:`~dasp_tpu_torch.ops.
+    onepole_exact`, normalized to unit RMS and scaled by the depths). The
+    curve is computed in float64 and rounded once: the noises' poles lie
+    within 1e-4 of 1, where fp32's rounding of the pole alone moves the
+    curve by about 1e-3 of its depth. The delay runs through
+    :func:`_frac_delay_matmul` with the static bound ``2 * base_ms``: the
+    fractional-delay kernel on a CUDA float32 tensor.
+
+    Args:
+        x: (bs, chs, T).
+        wow_depth_ms / flutter_depth_ms: RMS depths (ms), (bs,); keep their
+            sum well under ``base_ms``.
+        wow_rate_hz / flutter_rate_hz: the noises' bandwidths (Hz), (bs,).
+        base_ms: centre delay (ms), the dry latency.
+        generator: ``torch.Generator`` for the noise draw (the JAX package
+            takes a PRNG key here). Required unless ``noise`` is given.
+        noise: a (bs, 2, T) standard normal draw (channel 0 wow, 1 flutter).
+        block: output tile length of the delay.
+    """
+    bs, _, seq_len = x.shape
+    dtype, device = x.dtype, x.device
+    wow_depth, fl_depth, wow_rate, fl_rate = _params(
+        bs, dtype, device, wow_depth_ms, flutter_depth_ms, wow_rate_hz, flutter_rate_hz)
+    if noise is None:
+        if generator is None:
+            raise ValueError("wow_flutter is stochastic: pass generator= (or noise=).")
+        noise = torch.randn((bs, 2, seq_len), generator=generator, dtype=dtype, device=device)
+    else:
+        noise = torch.as_tensor(noise, dtype=dtype, device=device)
+    ln9 = math.log(9.0)
+
+    def drift(n, rate):
+        alpha = torch.exp(-ln9 / (sample_rate / torch.clamp(rate.double(), min=1e-3)))
+        d = onepole_exact(n.double(), alpha)
+        return d / torch.sqrt(torch.mean(d ** 2, dim=-1, keepdim=True) + 1e-12)
+
+    ms = sample_rate / 1e3
+    d = (base_ms * ms + wow_depth.double() * ms * drift(noise[:, 0:1], wow_rate)
+         + fl_depth.double() * ms * drift(noise[:, 1:2], fl_rate))
+    dmax = 2.0 * base_ms * ms
+    d = torch.clamp(d, 0.0, dmax).to(dtype)
+    return _frac_delay_matmul(x, [(d, None)], float(dmax), block).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the WOLA time-varying family
+# ---------------------------------------------------------------------------
+
+
+def _tv_hooks_not_ported(tv_power_fn, tv_filter_fn) -> None:
+    if tv_power_fn is not None or tv_filter_fn is not None:
+        raise _callable_not_ported("tv_power_fn or tv_filter_fn")
+
+
+def _einsum_float64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` computed in float64 and rounded once to the first
+    operand's dtype. The JAX package runs these contractions at
+    ``Precision.HIGHEST``; in float64 they are DGEMMs, which TF32 never
+    touches, so the result is the same whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says."""
+    return torch.einsum(equation, *(o.double() for o in operands)).to(operands[0].dtype)
+
+
+def _unit_phasors(n_bins: int, device) -> torch.Tensor:
+    """``exp(-j w)`` on ``w = linspace(0, pi, n_bins)``, complex64 as the JAX
+    package's constant (a float64 operand promotes it)."""
+    w = np.linspace(0.0, np.pi, n_bins, dtype=np.float32)
+    return torch.from_numpy(np.exp(-1j * w).astype(np.complex64)).to(device)
+
+
+def _power(X: torch.Tensor) -> torch.Tensor:
+    """|X|^2 of complex spectra (its gradient is 0 at X = 0)."""
+    return X.real.square() + X.imag.square()
+
+
+def _smooth_det_power(power, alpha_d, mode="centered", y0=None):
+    """Smooth a (bs, n_frames, n_bins) detector power over frames by a
+    one-pole: ``"centered"`` (forward and backward: zero phase, so the gate
+    opens on time at onsets) or ``"causal"`` (forward only). Returns the
+    smoothed power and the forward pass's last frame."""
+    p_s = onepole_exact(power.transpose(1, 2), alpha_d, y0=y0)  # (bs, n_bins, n_frames)
+    yf = p_s[..., -1]
+    if mode == "centered":
+        p_s = torch.flip(onepole_exact(torch.flip(p_s, (-1,)), alpha_d), (-1,))
+    elif mode != "causal":
+        raise ValueError(f"det_smooth_mode must be 'centered' or 'causal', got {mode!r}.")
+    return p_s.transpose(1, 2), yf
+
+
+def _spectral_gate_gain(
+    det_db, noise_db, threshold_db, range_db, sharpness_db,
+    alpha_a, alpha_r, smoother, freq_smooth_bins=9, y0=None, return_yf=False,
+):
+    """Per-bin gate gain (linear, (bs, n_frames, n_bins)) from a detector
+    spectrogram and a noise floor in dB: a sigmoid above the floor, floored
+    at ``-range_db``, smoothed over frames by the ballistics (gate
+    convention: the first coefficient acts where the gain falls) and across
+    bins by a normalized ``freq_smooth_bins``-wide Hann kernel (edges
+    replicated; <= 1 disables)."""
+    mask = torch.sigmoid((det_db - noise_db - threshold_db) / torch.clamp(sharpness_db, min=1e-3))
+    floor = db_to_linear(-range_db)
+    gain = floor + (1.0 - floor) * mask
+    out = ballistics_smooth(gain.transpose(1, 2), alpha_r, alpha_a, mode=smoother, y0=y0, return_yf=return_yf)
+    gain = (out[0] if return_yf else out).transpose(1, 2)
+    W = int(freq_smooth_bins)
+    if W > 1:
+        w = np.hanning(W + 2)[1:-1].astype(np.float32)
+        w = w / w.sum()
+        half = W // 2
+        gp = nnf.pad(gain, (half, W - 1 - half), mode="replicate")
+        n = gain.shape[-1]
+        gain = sum(float(w[k]) * gp[..., k : k + n] for k in range(W))
+    return (gain, out[1]) if return_yf else gain
+
+
+def spectral_gate(
+    x: torch.Tensor,
+    sample_rate: float,
+    threshold_db,
+    range_db,
+    attack_ms,
+    release_ms,
+    sharpness_db=3.0,
+    noise_profile_db: torch.Tensor | None = None,
+    noise_quantile: float = 0.15,
+    det_smooth_ms: float = 40.0,
+    det_smooth_mode: str = "centered",
+    freq_smooth_bins: int = 9,
+    frame_size: int = 2048,
+    hop: int = 512,
+    eps: float = 1e-8,
+    smoother: str = "parallel",
+    tv_power_fn=None,
+    tv_filter_fn=None,
+) -> torch.Tensor:
+    """Spectral gate (broadband noise reduction), differentiable throughout.
+
+    One analysis STFT (:func:`~dasp_tpu_torch.ops.tv_stft`) serves detection
+    and filtering. The channel-mean power of each (frame, bin), smoothed
+    over ``det_smooth_ms`` (:func:`_smooth_det_power`), is compared in dB
+    with a noise floor: ``gain = floor + (1 - floor) sigmoid((X_db - N_db -
+    threshold_db) / sharpness_db)``, smoothed over frames (``attack_ms``
+    opens a bin, ``release_ms`` closes it) and across bins, then applied to
+    the spectra and overlap-added. The floor is ``noise_profile_db`` (from
+    :func:`spectral_noise_profile` on a noise-only capture), else the
+    ``noise_quantile`` quantile of each bin's smoothed detector.
+
+    Args:
+        x: (bs, chs, T); the channels share one detector and mask.
+        threshold_db: dB above the floor where a bin half-opens, (bs,).
+        range_db: maximum attenuation (dB, >= 0), (bs,).
+        attack_ms / release_ms: per-bin open and close times (ms), (bs,).
+        sharpness_db: the sigmoid's width (dB), (bs,) or scalar.
+        noise_profile_db: a measured floor, (bs, frame_size + 1); None
+            estimates it.
+        noise_quantile: the estimate's quantile.
+        det_smooth_ms / det_smooth_mode: the detector's smoothing time and
+            mode ("centered" or "causal").
+        freq_smooth_bins: the gain's smoothing width across bins.
+        frame_size / hop: the analysis frames (n_fft = 2 * frame_size).
+        eps: floor of the detector.
+        smoother: "parallel" (the default) or "exact" frame ballistics.
+        tv_power_fn / tv_filter_fn: the JAX package's sequence-sharded plug
+            points; not ported, they raise.
+    """
+    _tv_hooks_not_ported(tv_power_fn, tv_filter_fn)
+    bs, _, seq_len = x.shape
+    dtype, device = x.dtype, x.device
+    threshold_db, range_db, attack_ms, release_ms, sharpness_db = _params(
+        bs, dtype, device, threshold_db, range_db, attack_ms, release_ms, sharpness_db)
+    ln9 = math.log(9.0)
+    frame_rate = sample_rate / hop
+    X = tv_stft(x, frame_size, hop, 2 * frame_size)  # (bs, chs, n_frames, n_bins)
+    alpha_d = np.exp(-ln9 / (frame_rate * (det_smooth_ms / 1e3))).astype(np.float32)
+    power, _ = _smooth_det_power(_power(X).mean(dim=1), alpha_d, det_smooth_mode)
+    det_db = 10.0 * torch.log10(torch.clamp(power, min=eps * eps))
+    if noise_profile_db is None:
+        noise_db = torch.quantile(det_db, noise_quantile, dim=1, keepdim=True)
+    else:
+        noise_db = torch.as_tensor(noise_profile_db, dtype=dtype, device=device)[:, None, :]
+    alpha_a = torch.exp(-ln9 / (frame_rate * (attack_ms / 1e3)))
+    alpha_r = torch.exp(-ln9 / (frame_rate * (release_ms / 1e3)))
+    gain = _spectral_gate_gain(det_db, noise_db, threshold_db, range_db, sharpness_db, alpha_a, alpha_r,
+                               smoother, freq_smooth_bins)
+    return tv_istft(X * gain[:, None], seq_len, frame_size, hop).to(dtype)
+
+
+def spectral_noise_profile(noise: torch.Tensor, frame_size: int = 2048, hop: int = 512,
+                           eps: float = 1e-8) -> torch.Tensor:
+    """A noise floor for :func:`spectral_gate` from a noise-only capture
+    (bs, chs, T): the per-bin mean power of its short-time spectra in dB,
+    (bs, frame_size + 1)."""
+    X = tv_stft(noise, frame_size, hop, 2 * frame_size)
+    return 10.0 * torch.log10(torch.clamp(_power(X).mean(dim=(1, 2)), min=eps * eps))
+
+
+def _band_param(p, bs: int, nb: int, dtype, device) -> torch.Tensor:
+    """A per-band parameter as (bs, n_bands): scalars and (bs,) tensors
+    broadcast across bands."""
+    p = torch.as_tensor(p, dtype=dtype, device=device)
+    if p.ndim == 0:
+        return p.expand(bs, nb)
+    if p.ndim == 1:
+        return p[:, None].expand(bs, nb)
+    return p.reshape(bs, nb)
+
+
+def _biquad_response(f, q, gain_db, n_bins: int, sample_rate: float, filter_type: str = "peaking"):
+    """Closed-form complex response of a cookbook "peaking" or "band_pass"
+    biquad on ``w = linspace(0, pi, n_bins)``, batched over any leading
+    shape: ``f.shape + (n_bins,)``."""
+    A = 10.0 ** (gain_db / 40.0)
+    w0 = 2.0 * np.pi * (f / sample_rate)
+    alpha = torch.sin(w0) / (2.0 * q)
+    cos_w0 = torch.cos(w0)
+    if filter_type == "peaking":
+        b0, b1, b2 = 1.0 + alpha * A, -2.0 * cos_w0, 1.0 - alpha * A
+        a0, a1, a2 = 1.0 + alpha / A, -2.0 * cos_w0, 1.0 - alpha / A
+    elif filter_type == "band_pass":
+        b0, b1, b2 = A * alpha, torch.zeros_like(alpha), -A * alpha
+        a0, a1, a2 = 1.0 + alpha, -2.0 * cos_w0, 1.0 - alpha
+    else:
+        raise ValueError(f"Unsupported filter_type: {filter_type!r}")
+    e1 = _unit_phasors(n_bins, f.device)
+    e2 = e1 * e1
+    num = b0[..., None] + b1[..., None] * e1 + b2[..., None] * e2
+    den = a0[..., None] + a1[..., None] * e1 + a2[..., None] * e2
+    return num / den
+
+
+def _dynamic_eq_gain(P, band_w, threshold_db, ratio, knee_db, max_cut_db, alpha_a, alpha_r, smoother, eps,
+                     y0=None, return_yf=False):
+    """Per-band gain reduction (bs, n_bands, n_frames) in dB <= 0 from a
+    power spectrogram ``P`` (bs, n_frames, n_bins) and detection weights
+    ``band_w`` (bs, n_bands, n_bins): the weighted power in dB through the
+    compressor's static curve, capped at ``max_cut_db``, and the frame-rate
+    ballistics."""
+    level = _einsum_float64("bfk,bnk->bnf", P, band_w)
+    L = 10.0 * torch.log10(torch.clamp(level, min=eps * eps))
+    g_c = static_gain_computer(L, threshold_db, ratio, knee_db, "compressor")
+    g_c = torch.maximum(g_c, g_c.new_tensor(-max_cut_db))
+    return ballistics_smooth(g_c, alpha_a, alpha_r, mode=smoother, y0=y0, return_yf=return_yf)
+
+
+def dynamic_eq(
+    x: torch.Tensor,
+    sample_rate: float,
+    frequency_hz,
+    q_factor,
+    threshold_db,
+    ratio,
+    attack_ms,
+    release_ms,
+    knee_db: float = 6.0,
+    max_cut_db: float = 24.0,
+    frame_size: int = 1024,
+    hop: int = 256,
+    eps: float = 1e-8,
+    smoother: str = "parallel",
+    tv_power_fn=None,
+    tv_filter_fn=None,
+) -> torch.Tensor:
+    """Dynamic EQ: peaking bands whose cut follows their own band level.
+
+    One analysis STFT does both jobs: each band's detector is the band-pass
+    weighted power of each frame's spectrum (Parseval-calibrated, so a
+    sine at a band's centre reads its mean square), through the
+    compressor's static curve and frame-rate ballistics; the per-frame
+    response is the product of the peaking bells at their current gain
+    reductions, applied in the frequency domain (n_fft = 4 * frame_size,
+    room for a deep, narrow low band's tail).
+
+    Args:
+        x: (bs, chs, T); the channels share each band's detector.
+        frequency_hz, q_factor, threshold_db, ratio, attack_ms, release_ms:
+            per band, (bs, n_bands) (scalars and (bs,) broadcast across
+            bands).
+        knee_db: the soft knee (dB). max_cut_db: the cap on each band's cut.
+        frame_size / hop: the analysis frames.
+        eps: floor of the detector.
+        smoother: "parallel" (the default) or "exact" frame ballistics.
+        tv_power_fn / tv_filter_fn: not ported, they raise.
+    """
+    _tv_hooks_not_ported(tv_power_fn, tv_filter_fn)
+    bs, _, seq_len = x.shape
+    dtype, device = x.dtype, x.device
+    frequency_hz = torch.as_tensor(frequency_hz, dtype=dtype, device=device)
+    if frequency_hz.ndim < 2:
+        frequency_hz = frequency_hz.reshape(bs, -1)
+    nb = frequency_hz.shape[-1]
+    q_factor, threshold_db, ratio, attack_ms, release_ms = (
+        _band_param(p, bs, nb, dtype, device) for p in (q_factor, threshold_db, ratio, attack_ms, release_ms))
+    n_bins = 2 * frame_size + 1  # n_fft = 4 * frame_size
+    X = tv_stft(x, frame_size, hop, 4 * frame_size)
+    band_w = _dynamic_eq_band_weights(frequency_hz, q_factor, n_bins, sample_rate, frame_size, hop)
+    ln9 = math.log(9.0)
+    frame_rate = sample_rate / hop
+    alpha_a = torch.exp(-ln9 / (frame_rate * (attack_ms / 1e3)))[..., None]
+    alpha_r = torch.exp(-ln9 / (frame_rate * (release_ms / 1e3)))[..., None]
+    g = _dynamic_eq_gain(_power(X).mean(dim=1), band_w, threshold_db[..., None], ratio[..., None], knee_db,
+                         max_cut_db, alpha_a, alpha_r, smoother, eps)
+    H = _dynamic_eq_response(frequency_hz, q_factor, g, n_bins, sample_rate)
+    return tv_istft(X * H[:, None], seq_len, frame_size, hop).to(dtype)
+
+
+def _dynamic_eq_band_weights(frequency_hz, q_factor, n_bins: int, sample_rate: float, frame_size: int, hop: int):
+    """Band-pass power weights (bs, n_bands, n_bins), scaled so that the
+    weighted sum of a frame's power spectrum is the band-filtered signal's
+    mean square."""
+    bp = _biquad_response(frequency_hz, q_factor, torch.zeros_like(q_factor), n_bins, sample_rate, "band_pass")
+    n_fft = 2 * (n_bins - 1)
+    wpow = float(np.sum(tv_analysis_window(frame_size, hop) ** 2))
+    return _power(bp) * (2.0 / (n_fft * wpow))
+
+
+def _dynamic_eq_response(frequency_hz, q_factor, g, n_bins: int, sample_rate: float):
+    """The product of the peaking bells at gain reductions ``g`` (bs,
+    n_bands, n_frames): (bs, n_frames, n_bins), complex."""
+    Hb = _biquad_response(frequency_hz[:, :, None].expand(g.shape), q_factor[:, :, None].expand(g.shape),
+                          g, n_bins, sample_rate, "peaking")  # (bs, n_bands, n_frames, n_bins)
+    H = Hb[:, 0]
+    for i in range(1, Hb.shape[1]):
+        H = H * Hb[:, i]
+    return H
+
+
+def _phaser_response(f_break, feedback, mix, n_bins: int, stages: int, sample_rate: float):
+    """Per-frame response (bs, n_frames, n_bins) of the phaser core:
+    ``stages`` first-order allpasses with break frequency ``f_break`` (bs,
+    n_frames), a one-sample feedback path around them and a dry/wet mix,
+    ``H = (1 - mix) + mix A^K / (1 - fb e^-jw A^K)``."""
+    t = torch.tan(np.pi * f_break / sample_rate)
+    c = ((t - 1.0) / (t + 1.0))[..., None]  # (bs, n_frames, 1)
+    e = _unit_phasors(n_bins, f_break.device)
+    chain = ((c + e) / (1.0 + c * e)) ** stages
+    wet = chain / (1.0 - feedback[..., None] * e * chain)
+    mix = mix[..., None]
+    return (1.0 - mix) + mix * wet
+
+
+def phaser(
+    x: torch.Tensor,
+    sample_rate: float,
+    rate_hz,
+    depth,
+    centre_frequency_hz,
+    feedback,
+    mix,
+    stages: int = 6,
+    lfo_phase: float = 0.0,
+    frame_size: int = 512,
+    hop: int = 128,
+    tv_filter_fn=None,
+) -> torch.Tensor:
+    """LFO-swept allpass-cascade phaser: the cascade's closed-form response
+    at each analysis frame's LFO value (:func:`_phaser_response`), applied
+    by the WOLA filter (:func:`~dasp_tpu_torch.ops.tv_freq_filter`,
+    n_fft = 4 * frame_size).
+
+    Args:
+        x: (bs, chs, T).
+        rate_hz: LFO rate (Hz), (bs,).
+        depth: sweep width on [0, 1], +-2 depth octaves around the centre, (bs,).
+        centre_frequency_hz: sweep centre (Hz), (bs,).
+        feedback: around the allpass chain, |fb| < 1, (bs,).
+        mix: dry/wet on [0, 1], (bs,).
+        stages: first-order allpass stages. lfo_phase: initial LFO phase.
+        frame_size / hop: the analysis frames.
+        tv_filter_fn: not ported, it raises.
+    """
+    _tv_hooks_not_ported(None, tv_filter_fn)
+    bs, _, seq_len = x.shape
+    dtype, device = x.dtype, x.device
+    rate_hz, depth, centre, feedback, mix = (
+        _param(p, bs, dtype, device).reshape(bs, 1) for p in (rate_hz, depth, centre_frequency_hz, feedback, mix))
+    centers = tv_frame_centers(seq_len, frame_size, hop).astype(np.float32)
+    t = torch.from_numpy(centers / np.float32(sample_rate)).to(device)[None, :]  # (1, n_frames)
+    lfo = torch.sin(2.0 * np.pi * rate_hz * t + lfo_phase)
+    f_break = torch.clamp(centre * 2.0 ** (2.0 * depth * lfo), 1.0, 0.49 * sample_rate)
+    H = _phaser_response(f_break, feedback, mix, 2 * frame_size + 1, stages, sample_rate)
+    return tv_freq_filter(x, H, frame_size, hop).to(dtype)
+
+
+def auto_wah(
+    x: torch.Tensor,
+    sample_rate: float,
+    sensitivity,
+    attack_ms,
+    release_ms,
+    min_frequency_hz,
+    max_frequency_hz,
+    q_factor,
+    mix,
+    eps: float = 1e-8,
+    frame_size: int = 512,
+    hop: int = 128,
+    tv_filter_fn=None,
+) -> torch.Tensor:
+    """Envelope-following resonant band-pass (auto-wah): the mono level's
+    fast-rise, slow-fall envelope (``"parallel"`` ballistics), sampled at
+    the frame centres, steers a band-pass biquad's centre exponentially
+    between the two frequencies; the per-frame responses are applied by the
+    WOLA filter (n_fft = 4 * frame_size).
+
+    Args:
+        x: (bs, chs, T).
+        sensitivity: envelope-to-sweep gain (``tanh(sensitivity * env)``), (bs,).
+        attack_ms / release_ms: the envelope's rise and fall times (ms), (bs,).
+        min_frequency_hz / max_frequency_hz: the sweep range (Hz), (bs,);
+            the top floored at 1.01 x the bottom.
+        q_factor: resonance, (bs,). mix: dry/wet on [0, 1], (bs,).
+        eps: unused (the JAX package's signature).
+        frame_size / hop: the analysis frames.
+        tv_filter_fn: not ported, it raises.
+    """
+    _tv_hooks_not_ported(None, tv_filter_fn)
+    bs, _, seq_len = x.shape
+    dtype, device = x.dtype, x.device
+    sensitivity, attack_ms, release_ms = _params(bs, dtype, device, sensitivity, attack_ms, release_ms)
+    f_min, f_max, q_factor, mix = (
+        _param(p, bs, dtype, device).reshape(bs, 1) for p in (min_frequency_hz, max_frequency_hz, q_factor, mix))
+    f_max = torch.maximum(f_max, 1.01 * f_min)
+    level = torch.mean(torch.abs(x), dim=1, keepdim=True)  # (bs, 1, T)
+    ln9 = math.log(9.0)
+    alpha_a = torch.exp(-ln9 / (sample_rate * (attack_ms / 1e3)))
+    alpha_r = torch.exp(-ln9 / (sample_rate * (release_ms / 1e3)))
+    # the smoother's first coefficient acts where the level falls: the release
+    env = ballistics_smooth(level, alpha_r, alpha_a, mode="parallel")
+    idx = np.clip(np.round(tv_frame_centers(seq_len, frame_size, hop)).astype(np.int64), 0, seq_len - 1)
+    env_f = torch.index_select(env[:, 0], -1, torch.from_numpy(idx).to(device))  # (bs, n_frames)
+    f_c = f_min * (f_max / f_min) ** torch.tanh(sensitivity.reshape(bs, 1) * env_f)
+    n_frames = f_c.shape[1]
+    n_fft = 4 * frame_size
+    b, a = biquad(torch.zeros((bs * n_frames,), dtype=dtype, device=device), f_c.reshape(bs * n_frames),
+                  q_factor.expand(bs, n_frames).reshape(bs * n_frames), sample_rate, "band_pass")
+    H_bp = fft_freqz(b, a, n_fft).reshape(bs, n_frames, n_fft // 2 + 1)
+    H = (1.0 - mix[..., None]) + mix[..., None] * H_bp
+    return tv_freq_filter(x, H, frame_size, hop).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the phase vocoder: time stretch and pitch shift
+# ---------------------------------------------------------------------------
+
+
+def _pv_bin_advance(n_bins: int, hop: int, n_fft: int, device) -> torch.Tensor:
+    """``exp(-j w_bin)`` with ``w_bin = 2 pi k hop / n_fft``, each bin's
+    expected phase advance over a hop (complex64, as the JAX package's
+    constant)."""
+    w_bin = np.float32(2.0 * np.pi) * np.arange(n_bins, dtype=np.float32) * np.float32(hop / n_fft)
+    return torch.from_numpy(np.exp(-1j * w_bin).astype(np.complex64)).to(device)
+
+
+def _phase(z: torch.Tensor) -> torch.Tensor:
+    """``angle(z)``, with the phase of an exact zero 0: ``atan2`` of signed
+    zeros gives 0 or +-pi by the signs an FFT or a product leaves on them,
+    and the phase vocoder sums such phases into every later frame."""
+    return torch.angle(z + 0.0)
+
+
+def _pv_phase_ramp(n_out: int, n_bins: int, hop: int, n_fft: int) -> np.ndarray:
+    """The expected synthesis-phase ramp ``(j w_bin) mod 2 pi``, exactly, by
+    integer arithmetic: ``2 pi ((j k hop) mod n_fft) / n_fft``; (n_out,
+    n_bins) float32 numpy."""
+    j = np.arange(n_out, dtype=np.int64)[:, None]
+    step = (np.arange(n_bins, dtype=np.int64) * hop) % n_fft
+    m = (j * step[None, :]) % n_fft
+    return (np.float32(2.0 * np.pi / n_fft) * m).astype(np.float32)
+
+
+def _pv_synthesize(X, mag, dev, seq_len: int, frame_size: int, hop: int) -> torch.Tensor:
+    """Output spectra from magnitudes ``mag`` and per-hop phase deviations
+    ``dev`` (bs, chs, n_out, n_bins), overlap-added: the phase starts at the
+    first analysis frame's, adds the exact expected ramp and the
+    accumulated deviations (only the small ones are summed)."""
+    n_out, n_bins = mag.shape[-2:]
+    ramp = torch.from_numpy(_pv_phase_ramp(n_out, n_bins, hop, 2 * (n_bins - 1))).to(X.device)
+    acc = torch.cat([torch.zeros_like(dev[:, :, :1]), torch.cumsum(dev[:, :, :-1], dim=2)], dim=2)
+    phase = _phase(X[:, :, :1]) + ramp + acc
+    return tv_istft(torch.complex(mag * torch.cos(phase), mag * torch.sin(phase)), seq_len, frame_size, hop)
+
+
+def time_stretch(
+    x: torch.Tensor,
+    sample_rate: float,
+    rate,
+    frame_size: int = 2048,
+    hop: int = 512,
+    out_len: int | None = None,
+) -> torch.Tensor:
+    """Phase-vocoder time stretch: change duration, keep pitch.
+
+    One analysis STFT; output frame j reads the analysis track at ``j *
+    rate``: magnitudes linearly interpolated, phases propagated by the
+    instantaneous-frequency estimate, each bin's deviation from its
+    expected advance accumulated by one cumulative sum; one synthesis iSTFT
+    at the same hop. ``rate > 1`` shortens.
+
+    * ``out_len=None``: ``rate`` is a Python float and the output has
+      ``round(T / rate)`` samples (constant-index reads).
+    * ``out_len=<int>``: the output has ``out_len`` samples and ``rate`` may
+      be a (bs,) tensor, differentiable: an interior time warp, read by
+      piecewise-linear hat matrices (:func:`_time_stretch_fixed`), the
+      last analysis frame held where the warp runs past it.
+
+    The phase vocoder computes in float64 inside (the analysis STFT
+    included) and rounds its output once: its phases are sums over frames
+    of ``angle`` of bin products, and a small bin's angle moves by its
+    rounding over its magnitude, which fp32 carries into every later frame
+    (fp32 evaluations differ by up to 5e-4 of the peak, and its
+    differentiable rate's gradient by 2e-2 of its norm, at 2 x 2 x 8192).
+
+    Gradients flow to ``x`` (and ``rate`` with ``out_len``). Where an
+    analysis bin is exactly 0 (digital silence), the phase's gradient there
+    is 0, where the JAX package's is NaN, and the phase of such a bin is 0,
+    where the JAX package's is 0 or +-pi by the signs of its zeros
+    (ROADMAP.md Queue 3).
+
+    Args:
+        x: (bs, chs, T). sample_rate: unused.
+        rate: stretch factor > 0.
+        frame_size / hop: the analysis frames (n_fft = 2 * frame_size).
+        out_len: fixed output length (the differentiable-rate mode).
+    """
+    if out_len is not None:
+        return _time_stretch_fixed(x, rate, frame_size, hop, int(out_len))
+    rate = float(rate)
+    if rate <= 0.0:
+        raise ValueError(f"rate must be > 0, got {rate}")
+    seq_len, device = x.shape[-1], x.device
+    n_fft, n_bins = 2 * frame_size, frame_size + 1
+    X = tv_stft(x.double(), frame_size, hop, n_fft)
+    n_frames = X.shape[2]
+    out_len = int(round(seq_len / rate))
+    n_out = tv_frame_count(out_len, frame_size, hop)
+    tau = np.arange(n_out, dtype=np.float64) * rate
+    i0 = np.clip(np.floor(tau).astype(np.int64), 0, n_frames - 1)
+    i1 = np.minimum(i0 + 1, n_frames - 1)
+    frac = torch.from_numpy((tau - np.floor(tau)).astype(np.float32)).to(device)[:, None]
+    X0 = torch.index_select(X, 2, torch.from_numpy(i0).to(device))
+    X1 = torch.index_select(X, 2, torch.from_numpy(i1).to(device))
+    mag = (1.0 - frac) * X0.abs() + frac * X1.abs()
+    dphi = _phase(X1 * torch.conj(X0) * _pv_bin_advance(n_bins, hop, n_fft, device))
+    return _pv_synthesize(X, mag, dphi, out_len, frame_size, hop).to(x.dtype)
+
+
+def _time_stretch_fixed(x, rate, frame_size: int, hop: int, out_len: int):
+    """The fixed-length, differentiable-rate phase vocoder: the analysis
+    positions ``tau_j = clip(j * rate, last frame)`` are tensors, and the
+    magnitudes and per-hop phase deviations are interpolated by hat
+    matrices ``W[j, i] = relu(1 - |tau_j - i|)``, so gradients reach
+    ``rate`` through the weights. It computes in float64 (see
+    :func:`time_stretch`), so the two contractions, which the JAX package
+    runs at ``Precision.HIGHEST``, are DGEMMs that TF32 never touches."""
+    bs, _, seq_len = x.shape
+    dtype, device = torch.float64, x.device
+    rate_b = _param(rate, bs, dtype, device).reshape(bs, 1)
+    n_fft, n_bins = 2 * frame_size, frame_size + 1
+    X = tv_stft(x.double(), frame_size, hop, n_fft)
+    n_frames = X.shape[2]
+    n_out = tv_frame_count(out_len, frame_size, hop)
+    tau = torch.clamp(torch.arange(n_out, dtype=dtype, device=device)[None, :] * rate_b, 0.0, n_frames - 1)
+
+    def hat(tau, n):
+        return torch.relu(1.0 - torch.abs(tau[:, :, None] - torch.arange(n, dtype=dtype, device=device)))
+
+    mag = torch.einsum("bof,bcfk->bcok", hat(tau, n_frames), X.abs())
+    dev = _phase(X[:, :, 1:] * torch.conj(X[:, :, :-1]) * _pv_bin_advance(n_bins, hop, n_fft, device))
+    Wd = hat(torch.clamp(tau, 0.0, max(n_frames - 2, 0)), max(n_frames - 1, 1))
+    dev_o = torch.einsum("bof,bcfk->bcok", Wd, dev)
+    return _pv_synthesize(X, mag, dev_o, out_len, frame_size, hop).to(x.dtype)
+
+
+def _warp_resample(s: torch.Tensor, r: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Linearly interpolated read ``out[b, c, t] = s[b, c, t r_b]``, the
+    positions clipped to ``[0, L - 1.001]``; gradients flow to ``s`` and to
+    ``r`` (through the fractional part). A gather: the JAX package's tiled
+    hat-matrix contractions (``_warp_resample_tiles``) compute the same
+    interpolation, shaped for the TPU's matrix unit. The positions are
+    computed in float64 (in fp32 ``t r`` is off by up to 0.016 samples at
+    2^18, which moves the output and the gradient of ``r``)."""
+    bs, chs, L = s.shape
+    t = torch.arange(out_len, dtype=torch.float64, device=s.device)
+    pos = torch.clamp(t[None, :] * r.reshape(bs, 1).double(), 0.0, L - 1.001)  # (bs, out_len)
+    i0 = torch.floor(pos)
+    frac = (pos - i0).to(s.dtype)[:, None, :]
+    i0 = i0.long()[:, None, :].expand(bs, chs, out_len)
+    s0 = torch.gather(s, -1, i0)
+    s1 = torch.gather(s, -1, torch.clamp(i0 + 1, max=L - 1))
+    return s0 * (1.0 - frac) + s1 * frac
+
+
+def pitch_shift_pv(
+    x: torch.Tensor,
+    sample_rate: float,
+    semitones,
+    frame_size: int = 2048,
+    hop: int = 512,
+    max_semitones: float | None = None,
+) -> torch.Tensor:
+    """Phase-vocoder pitch shifter: :func:`time_stretch` by ``r =
+    2^(semitones / 12)``, then linear resampling back to the input's length.
+
+    * ``max_semitones=None``: ``semitones`` is a Python float (the stretch
+      length follows it; constant-index resampling).
+    * ``max_semitones=<float>``: ``semitones`` may be a (bs,) tensor up to
+      ``max_semitones``, differentiable: the stretch runs in its fixed-length
+      mode sized for the bound, and the resampling reads ``t r`` by a
+      linearly interpolated gather (:func:`_warp_resample`).
+
+    Args:
+        x: (bs, chs, T). sample_rate: unused.
+        semitones: the shift (+12 an octave up).
+        frame_size / hop: the analysis frames.
+        max_semitones: the bound of the differentiable mode.
+    """
+    bs, _, seq_len = x.shape
+    if max_semitones is not None:
+        r_max = 2.0 ** (max(float(max_semitones), 0.0) / 12.0)
+        L_s = int(math.ceil(seq_len * r_max))
+        # the ratio in float64: its fp32 rounding alone moves the read
+        # position t r by up to 0.016 samples at 2^18
+        r = 2.0 ** (_param(semitones, bs, torch.float64, x.device).reshape(bs) / 12.0)
+        stretched = time_stretch(x, sample_rate, 1.0 / r, frame_size, hop, out_len=L_s)
+        return _warp_resample(stretched, r, seq_len).to(x.dtype)
+    r = 2.0 ** (float(semitones) / 12.0)
+    stretched = time_stretch(x, sample_rate, 1.0 / r, frame_size, hop)
+    L = stretched.shape[-1]
+    ts = np.arange(seq_len, dtype=np.float64) * (L - 1) / max(seq_len - 1, 1)
+    j0 = np.clip(np.floor(ts).astype(np.int64), 0, L - 1)
+    j1 = np.minimum(j0 + 1, L - 1)
+    fr = torch.from_numpy((ts - np.floor(ts)).astype(np.float32)).to(x.device)
+    s0 = torch.index_select(stretched, -1, torch.from_numpy(j0).to(x.device))
+    s1 = torch.index_select(stretched, -1, torch.from_numpy(j1).to(x.device))
+    return ((1.0 - fr) * s0 + fr * s1).to(x.dtype)

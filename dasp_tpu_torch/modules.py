@@ -1,19 +1,16 @@
 """Processor layer: normalized-parameter dispatch for neural control.
 
-PyTorch counterpart of the parts of ``dasp_tpu/modules.py`` ported so far:
-``Processor``, ``Chain`` and the processors below. A ``Processor`` owns a
-parameter-range table and turns a ``(batch, num_params)`` tensor of
-normalized (0, 1) parameters, e.g. the sigmoid output of a network, into
-keyword arguments for its functional effect. Each instance records its
-constructor arguments in ``_init_spec`` as the JAX package's does.
+PyTorch counterpart of ``dasp_tpu/modules.py``: ``Processor``, ``Chain``
+and every processor. A ``Processor`` owns a parameter-range table and
+turns a ``(batch, num_params)`` tensor of normalized (0, 1) parameters,
+e.g. the sigmoid output of a network, into keyword arguments for its
+functional effect. Each instance records its constructor arguments in
+``_init_spec`` as the JAX package's does.
 
 PyTorch runs every call eagerly, so the out-of-range check of
 ``process_normalized`` always runs unless ``clip_params=True`` (the JAX
 package skips it under tracing). The check reads the values back to the
 host, which waits for a GPU; the render path passes ``clip_params=True``.
-
-The delay family's other processors, the time-varying (WOLA) family and
-``ConvolutionReverb`` are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,6 +50,18 @@ __all__ = [
     "Chorus",
     "Flanger",
     "PitchShift",
+    "Delay",
+    "RingModulator",
+    "Tremolo",
+    "StereoImager",
+    "ConvolutionReverb",
+    "WowFlutter",
+    "SpectralGate",
+    "DynamicEQ",
+    "Phaser",
+    "AutoWah",
+    "TimeStretch",
+    "PitchShiftPV",
 ]
 
 
@@ -850,3 +859,337 @@ class PitchShift(Processor):
             "semitones": (min_semitones, max_semitones),
             "mix": (min_mix, max_mix),
         }
+
+
+class Delay(Processor):
+    """Feedback delay (echo) with a continuous delay time
+    (:func:`functional.delay`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_delay_ms: float = 10.0,
+        max_delay_ms: float = 1000.0,
+        min_feedback: float = 0.0,
+        max_feedback: float = 0.9,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = F.delay
+        self.param_ranges = {
+            "delay_ms": (min_delay_ms, max_delay_ms),
+            "feedback": (min_feedback, max_feedback),
+            "mix": (min_mix, max_mix),
+        }
+
+
+class RingModulator(Processor):
+    """Sinusoidal carrier multiplication (:func:`functional.ring_modulator`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_frequency_hz: float = 20.0,
+        max_frequency_hz: float = 4000.0,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = F.ring_modulator
+        self.param_ranges = {
+            "frequency_hz": (min_frequency_hz, max_frequency_hz),
+            "mix": (min_mix, max_mix),
+        }
+
+
+class Tremolo(Processor):
+    """Sinusoidal amplitude modulation (:func:`functional.tremolo`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_rate_hz: float = 0.1,
+        max_rate_hz: float = 10.0,
+        min_depth: float = 0.0,
+        max_depth: float = 1.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = F.tremolo
+        self.param_ranges = {
+            "rate_hz": (min_rate_hz, max_rate_hz),
+            "depth": (min_depth, max_depth),
+        }
+
+
+class StereoImager(Processor):
+    """Multiband stereo width (:func:`functional.stereo_imager`)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_crossover_low_hz: float = 80.0,
+        max_crossover_low_hz: float = 500.0,
+        min_crossover_high_hz: float = 1000.0,
+        max_crossover_high_hz: float = 8000.0,
+        min_width: float = 0.0,
+        max_width: float = 1.0,
+        filter_method: str = "coupled",
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.stereo_imager, filter_method=filter_method)
+        self.param_ranges = {
+            "crossover_low_hz": (min_crossover_low_hz, max_crossover_low_hz),
+            "crossover_high_hz": (min_crossover_high_hz, max_crossover_high_hz),
+            "low_width": (min_width, max_width),
+            "mid_width": (min_width, max_width),
+            "high_width": (min_width, max_width),
+        }
+
+
+class ConvolutionReverb(Processor):
+    """User-IR convolution reverb (:func:`functional.convolution_reverb`).
+    ``mix`` is the parameter; the impulse response (which may itself be a
+    trainable tensor) goes in as ``process_normalized(x, p, ir=...)``, and
+    :class:`Chain` forwards it."""
+
+    consumes_kwargs = ("ir",)
+
+    def __init__(self, sample_rate: int, min_mix: float = 0.0, max_mix: float = 1.0, block: Optional[int] = None):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.convolution_reverb, block=block)
+        self.param_ranges = {"mix": (min_mix, max_mix)}
+
+
+class WowFlutter(Processor):
+    """Tape speed instability (:func:`functional.wow_flutter`). Stochastic:
+    ``process_normalized`` needs ``generator=`` or ``noise=``."""
+
+    stochastic = True
+    consumes_kwargs = ("noise",)
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_depth_ms: float = 0.0,
+        max_depth_ms: float = 1.5,
+        min_rate_hz: float = 0.1,
+        max_wow_rate_hz: float = 2.0,
+        max_flutter_rate_hz: float = 30.0,
+        base_ms: float = 5.0,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.wow_flutter, base_ms=base_ms)
+        self.param_ranges = {
+            "wow_depth_ms": (min_depth_ms, max_depth_ms),
+            "flutter_depth_ms": (min_depth_ms, max_depth_ms),
+            "wow_rate_hz": (min_rate_hz, max_wow_rate_hz),
+            "flutter_rate_hz": (min_rate_hz, max_flutter_rate_hz),
+        }
+
+
+class SpectralGate(Processor):
+    """Spectral noise gate (:func:`functional.spectral_gate`). The
+    threshold, range, attack and release are parameters; the frames,
+    sharpness and smoother are constructor settings. A measured floor goes
+    in as ``process_normalized(x, p, noise_profile_db=...)``, and
+    :class:`Chain` forwards it."""
+
+    consumes_kwargs = ("noise_profile_db",)
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_threshold_db: float = 0.0,
+        max_threshold_db: float = 24.0,
+        min_range_db: float = 0.0,
+        max_range_db: float = 60.0,
+        min_attack_ms: float = 1.0,
+        max_attack_ms: float = 50.0,
+        min_release_ms: float = 20.0,
+        max_release_ms: float = 500.0,
+        sharpness_db: float = 3.0,
+        frame_size: int = 2048,
+        hop: int = 512,
+        smoother: str = "parallel",
+        tv_power_fn=None,
+        tv_filter_fn=None,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.spectral_gate, sharpness_db=sharpness_db, frame_size=frame_size, hop=hop,
+                                         smoother=smoother, tv_power_fn=tv_power_fn, tv_filter_fn=tv_filter_fn)
+        self.param_ranges = {
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "range_db": (min_range_db, max_range_db),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+        }
+
+
+class DynamicEQ(Processor):
+    """N-band dynamic EQ (:func:`functional.dynamic_eq`). ``num_bands`` is a
+    constructor setting; the normalized tensor holds ``num_bands * 6``
+    columns in band-major order (band0_frequency_hz .. band0_release_ms,
+    band1_...), the bands' frequency ranges staggered geometrically from
+    40 Hz to Nyquist. ``process(x, sr, frequency_hz, ...)`` passes (bs,
+    n_bands) tensors straight through."""
+
+    _NAMES = ("frequency_hz", "q_factor", "threshold_db", "ratio", "attack_ms", "release_ms")
+
+    def __init__(
+        self,
+        sample_rate: int,
+        num_bands: int = 3,
+        min_q: float = 0.5,
+        max_q: float = 8.0,
+        min_threshold_db: float = -60.0,
+        max_threshold_db: float = 0.0,
+        min_ratio: float = 1.0,
+        max_ratio: float = 10.0,
+        min_attack_ms: float = 1.0,
+        max_attack_ms: float = 100.0,
+        min_release_ms: float = 10.0,
+        max_release_ms: float = 500.0,
+        knee_db: float = 6.0,
+        max_cut_db: float = 24.0,
+        frame_size: int = 1024,
+        hop: int = 256,
+        smoother: str = "parallel",
+        tv_power_fn=None,
+        tv_filter_fn=None,
+    ):
+        self.sample_rate = sample_rate
+        self.num_bands = num_bands
+        edges = [40.0 * (0.5 * sample_rate / 40.0) ** (i / num_bands) for i in range(num_bands + 1)]
+        ranges = {
+            "q_factor": (min_q, max_q),
+            "threshold_db": (min_threshold_db, max_threshold_db),
+            "ratio": (min_ratio, max_ratio),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+        }
+        self.param_ranges = {
+            f"band{i}_{name}": (edges[i], edges[i + 1]) if name == "frequency_hz" else ranges[name]
+            for i in range(num_bands) for name in self._NAMES
+        }
+        static = {"knee_db": knee_db, "max_cut_db": max_cut_db, "frame_size": frame_size, "hop": hop,
+                  "smoother": smoother, "tv_power_fn": tv_power_fn, "tv_filter_fn": tv_filter_fn}
+
+        def _process(x, sr, *args, **kw):
+            if args:  # raw positional passthrough
+                return F.dynamic_eq(x, sr, *args, **{**static, **kw})
+            stacked = {name: torch.stack([kw.pop(f"band{i}_{name}") for i in range(num_bands)], dim=-1)
+                       for name in self._NAMES}
+            return F.dynamic_eq(x, sr, **stacked, **{**static, **kw})
+
+        self.process_fn = _process
+
+
+class Phaser(Processor):
+    """LFO-swept allpass-cascade phaser (:func:`functional.phaser`);
+    ``stages``, ``frame_size`` and ``hop`` are constructor settings."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_rate_hz: float = 0.05,
+        max_rate_hz: float = 5.0,
+        min_depth: float = 0.0,
+        max_depth: float = 1.0,
+        min_centre_frequency_hz: float = 200.0,
+        max_centre_frequency_hz: float = 2000.0,
+        min_feedback: float = -0.8,
+        max_feedback: float = 0.8,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+        stages: int = 6,
+        frame_size: int = 512,
+        hop: int = 128,
+        tv_filter_fn=None,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.phaser, stages=stages, frame_size=frame_size, hop=hop,
+                                         tv_filter_fn=tv_filter_fn)
+        self.param_ranges = {
+            "rate_hz": (min_rate_hz, max_rate_hz),
+            "depth": (min_depth, max_depth),
+            "centre_frequency_hz": (min_centre_frequency_hz, max_centre_frequency_hz),
+            "feedback": (min_feedback, max_feedback),
+            "mix": (min_mix, max_mix),
+        }
+
+
+class AutoWah(Processor):
+    """Envelope-following resonant band-pass (:func:`functional.auto_wah`);
+    ``frame_size`` and ``hop`` are constructor settings. Both ends of the
+    sweep are parameters over the whole range (the effect keeps the top at
+    least 1.01 x the bottom)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_sensitivity: float = 0.5,
+        max_sensitivity: float = 20.0,
+        min_attack_ms: float = 1.0,
+        max_attack_ms: float = 50.0,
+        min_release_ms: float = 10.0,
+        max_release_ms: float = 500.0,
+        min_frequency_hz: float = 100.0,
+        max_frequency_hz: float = 4000.0,
+        min_q_factor: float = 0.707,
+        max_q_factor: float = 10.0,
+        min_mix: float = 0.0,
+        max_mix: float = 1.0,
+        frame_size: int = 512,
+        hop: int = 128,
+        tv_filter_fn=None,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.auto_wah, frame_size=frame_size, hop=hop, tv_filter_fn=tv_filter_fn)
+        self.param_ranges = {
+            "sensitivity": (min_sensitivity, max_sensitivity),
+            "attack_ms": (min_attack_ms, max_attack_ms),
+            "release_ms": (min_release_ms, max_release_ms),
+            "min_frequency_hz": (min_frequency_hz, max_frequency_hz),
+            "max_frequency_hz": (min_frequency_hz, max_frequency_hz),
+            "q_factor": (min_q_factor, max_q_factor),
+            "mix": (min_mix, max_mix),
+        }
+
+
+class TimeStretch(Processor):
+    """Phase-vocoder time stretch with a learnable rate
+    (:func:`functional.time_stretch` in its fixed-length mode): the output
+    keeps the input's length, an interior time warp."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_rate: float = 0.5,
+        max_rate: float = 2.0,
+        frame_size: int = 2048,
+        hop: int = 512,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = lambda x, *a, **kw: F.time_stretch(
+            x, *a, **{"frame_size": frame_size, "hop": hop, "out_len": x.shape[-1], **kw})
+        self.param_ranges = {"rate": (min_rate, max_rate)}
+
+
+class PitchShiftPV(Processor):
+    """Phase-vocoder pitch shifter with a learnable shift
+    (:func:`functional.pitch_shift_pv` in its bounded mode, sized for
+    ``max_semitones``)."""
+
+    def __init__(
+        self,
+        sample_rate: int,
+        min_semitones: float = -12.0,
+        max_semitones: float = 12.0,
+        frame_size: int = 2048,
+        hop: int = 512,
+    ):
+        self.sample_rate = sample_rate
+        self.process_fn = _with_defaults(F.pitch_shift_pv, frame_size=frame_size, hop=hop,
+                                         max_semitones=max_semitones)
+        self.param_ranges = {"semitones": (min_semitones, max_semitones)}

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as nnf
 
@@ -500,14 +501,27 @@ def _like(v, x: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=x.dtype, device=x.device)
 
 
+def _coef(v, x: torch.Tensor) -> torch.Tensor:
+    """A coefficient as a tensor on x's device, in x's dtype unless it is an
+    array or tensor of a narrower float type: that one keeps its type, as
+    in JAX, where a float32 coefficient on float64 audio multiplies the
+    scan's decays in float32."""
+    if isinstance(v, (np.ndarray, np.generic, torch.Tensor)):
+        t = torch.as_tensor(v, device=x.device)
+        if t.is_floating_point() and t.dtype.itemsize < x.dtype.itemsize:
+            return t
+    return _like(v, x)
+
+
 def onepole_exact(x: torch.Tensor, alpha, y0: torch.Tensor | None = None) -> torch.Tensor:
     """Exact one-pole lowpass smoother y[n] = (1 - alpha) x[n] + alpha y[n-1].
 
     ``alpha`` broadcasts against ``x`` (e.g. (bs, 1, 1) against
-    (bs, 1, T)). ``y0`` is the carried y[-1] (shape x.shape[:-1]; None =
-    from rest), so chunk-chained evaluation follows one pass.
+    (bs, 1, T)); a float32 array or tensor on float64 audio keeps its type
+    (see :func:`_coef`). ``y0`` is the carried y[-1] (shape x.shape[:-1];
+    None = from rest), so chunk-chained evaluation follows one pass.
     """
-    alpha = torch.broadcast_to(_like(alpha, x), x.shape)
+    alpha = torch.broadcast_to(_coef(alpha, x), x.shape)
     drive = (1.0 - alpha) * x
     if y0 is not None:
         first = drive[..., :1] + alpha[..., :1] * y0[..., None]

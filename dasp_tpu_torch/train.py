@@ -31,17 +31,26 @@ on it, re-render with the prediction, the default STFT loss, backward and
 Adam. With ``PitchShift`` or ``Chorus`` one step launches the
 fractional-delay kernel twice (both renders) and its backward once.
 
-The mastering-dynamics step (:func:`mastering_step`) is the one of
-``examples/mastering.py`` without its dynamic EQ: ``Chain([TransientShaper,
-MultibandCompressor, Exciter, Limiter])`` at their defaults, driven by
-logits ``z`` through a sigmoid, the MR-STFT loss plus 10 x the MSE against
-a target rendered from hidden parameters, backward and Adam at 2e-2. Here
-the step renders its target (no gradient), as the blind step does. One
-step launches the ballistics kernel twice (the Limiter in both renders)
-and its backward once; the rest of the chain runs the port's plain
-PyTorch paths (``"coupled"`` crossovers and high-pass, the ``"block"``
-one-pole of the band compressors, ``"parallel"`` ballistics and
-``peak_decay`` in the transient shaper).
+The mastering step (:func:`mastering_step`) is the one of
+``examples/mastering.py``: its whole chain, ``Chain([TransientShaper,
+DynamicEQ(num_bands=3), MultibandCompressor, Exciter, Limiter])`` at their
+defaults (47 normalized parameters), driven by logits ``z`` through a
+sigmoid, the MR-STFT loss plus 10 x the MSE against a target rendered from
+hidden parameters, backward and Adam at 2e-2. Here the step renders its
+target (no gradient), as the blind step does. One step launches the
+ballistics kernel twice (the Limiter in both renders) and its backward
+once; the rest of the chain runs the port's plain PyTorch paths
+(``"coupled"`` crossovers and high-pass, the ``"block"`` one-pole of the
+band compressors, ``"parallel"`` ballistics and ``peak_decay`` in the
+transient shaper, the dynamic EQ's WOLA transforms on ``torch.fft``).
+
+The denoising step (:func:`denoise_step`) is the one of
+``examples/denoise.py``: the noise floor measured from a noise-only
+capture (:func:`~dasp_tpu_torch.functional.spectral_noise_profile`), then
+``SpectralGate`` with that profile, driven by four logits that start at
+``logit([0.25, 0.66, 0.08, 0.14])``, the MSE against the clean program,
+backward and Adam at 3e-2. It launches no kernel: the gate is ``torch.fft``
+and the ``"parallel"`` ballistics.
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from .models import ParameterNetwork, StyleTransferNet, apply_style_chain, make_style_processors
-from .modules import Chain, Exciter, Limiter, MultibandCompressor, TransientShaper
+from .functional import spectral_noise_profile
+from .modules import Chain, DynamicEQ, Exciter, Limiter, MultibandCompressor, SpectralGate, TransientShaper
 from .utils.loss import multi_resolution_stft_loss, stft_loss
 
 __all__ = [
@@ -63,9 +73,13 @@ __all__ = [
     "make_blind_estimation",
     "blind_estimation_loss",
     "blind_estimation_step",
-    "make_mastering_dynamics",
+    "make_mastering",
     "mastering_loss",
     "mastering_step",
+    "DENOISE_P0",
+    "make_denoise",
+    "denoise_loss",
+    "denoise_step",
 ]
 
 # the JAX package's smoke-scale net and IR (bench.py --smoke, examples --smoke)
@@ -279,19 +293,20 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
     return loss.detach(), param_l1
 
 
-def make_mastering_dynamics(sample_rate: int = 44100, *, bs: int = 1, device=None):
-    """The chain, the logits and the optimizer of the mastering-dynamics
-    step: ``Chain([TransientShaper, MultibandCompressor, Exciter, Limiter])``
-    at their defaults (29 normalized parameters), logits ``z`` of shape
-    (bs, 29) at zero (every parameter at the middle of its range) on
-    ``device`` (None means the CUDA card, and raises without one), and Adam
-    at 2e-2 with optax.adam's defaults.
+def make_mastering(sample_rate: int = 44100, *, bs: int = 1, device=None):
+    """The chain, the logits and the optimizer of the mastering step:
+    ``examples/mastering.py``'s ``Chain([TransientShaper, DynamicEQ(
+    num_bands=3), MultibandCompressor, Exciter, Limiter])`` at their
+    defaults (47 normalized parameters), logits ``z`` of shape (bs, 47) at
+    zero (every parameter at the middle of its range) on ``device`` (None
+    means the CUDA card, and raises without one), and Adam at 2e-2 with
+    optax.adam's defaults.
 
     Returns:
         ``(chain, z, opt)``.
     """
-    chain = Chain([TransientShaper(sample_rate), MultibandCompressor(sample_rate), Exciter(sample_rate),
-                   Limiter(sample_rate)])
+    chain = Chain([TransientShaper(sample_rate), DynamicEQ(sample_rate, num_bands=3),
+                   MultibandCompressor(sample_rate), Exciter(sample_rate), Limiter(sample_rate)])
     z = torch.zeros((bs, chain.num_params), device=_entry_device(device), requires_grad=True)
     opt = torch.optim.Adam([z], lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
     return chain, z, opt
@@ -310,7 +325,7 @@ def mastering_loss(chain, z: torch.Tensor, mix: torch.Tensor, target: torch.Tens
 
 def mastering_step(chain, z: torch.Tensor, opt: torch.optim.Optimizer, mix: torch.Tensor,
                    p_true: torch.Tensor, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
-    """One mastering-dynamics step (see the module docstring): the target
+    """One mastering step (see the module docstring): the target
     rendered from the hidden normalized parameters ``p_true`` (no
     gradient), the loss of the render from ``z``, backward, Adam. Updates
     ``z`` and the optimizer's state in place.
@@ -329,6 +344,69 @@ def mastering_step(chain, z: torch.Tensor, opt: torch.optim.Optimizer, mix: torc
         target = chain.process_normalized(mix, p_true, clip_params=True)
     mark("target")
     loss, _ = mastering_loss(chain, z, mix, target)
+    mark("forward")
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    mark("backward")
+    opt.step()
+    mark("optimizer")
+    return loss.detach()
+
+
+# examples/denoise.py's starting point: threshold, range, attack and release
+# at these shares of their ranges
+DENOISE_P0 = (0.25, 0.66, 0.08, 0.14)
+
+
+def make_denoise(sample_rate: int = 44100, *, bs: int = 1, device=None):
+    """The gate, the logits and the optimizer of the denoising step:
+    ``SpectralGate(sample_rate)`` at its defaults, logits ``z`` of shape
+    (bs, 4) at ``logit(DENOISE_P0)`` on ``device`` (None means the CUDA
+    card, and raises without one), and Adam at 3e-2 with optax.adam's
+    defaults.
+
+    Returns:
+        ``(gate, z, opt)``.
+    """
+    gate = SpectralGate(sample_rate)
+    p0 = torch.tensor(DENOISE_P0, dtype=torch.float32, device=_entry_device(device))
+    z = torch.log(p0 / (1.0 - p0)).expand(bs, gate.num_params).clone().requires_grad_()
+    opt = torch.optim.Adam([z], lr=3e-2, betas=(0.9, 0.999), eps=1e-8)
+    return gate, z, opt
+
+
+def denoise_loss(gate, z: torch.Tensor, noisy: torch.Tensor, clean: torch.Tensor, profile_db: torch.Tensor):
+    """The gate's render of ``noisy`` with parameters ``sigmoid(z)`` and the
+    measured floor ``profile_db``, and its MSE against ``clean``.
+
+    Returns:
+        ``(loss, y)``: the loss and the render.
+    """
+    y = gate.process_normalized(noisy, torch.sigmoid(z), clip_params=True, noise_profile_db=profile_db)
+    return torch.mean((y - clean) ** 2), y
+
+
+def denoise_step(gate, z: torch.Tensor, opt: torch.optim.Optimizer, noisy: torch.Tensor, clean: torch.Tensor,
+                 noise_only: torch.Tensor, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    """One denoising step (see the module docstring): the noise floor of
+    ``noise_only`` (no gradient), the loss of the gated ``noisy`` against
+    ``clean``, backward, Adam. Updates ``z`` and the optimizer's state in
+    place.
+
+    Args:
+        noisy / clean / noise_only: (bs, chs, T) each: the program with
+            noise, without it, and a capture of the noise alone.
+        mark: called with "profile", "forward", "backward" and "optimizer"
+            as each part ends (e.g. to record CUDA events).
+
+    Returns:
+        The loss, detached.
+    """
+    mark = mark or (lambda name: None)
+    with torch.no_grad():
+        profile_db = spectral_noise_profile(noise_only)
+    mark("profile")
+    loss, _ = denoise_loss(gate, z, noisy, clean, profile_db)
     mark("forward")
     opt.zero_grad(set_to_none=True)
     loss.backward()

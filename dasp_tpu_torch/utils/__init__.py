@@ -1,6 +1,7 @@
-"""Utilities: the MR-STFT loss. PyTorch counterpart of the loss part of
-``dasp_tpu/utils``."""
+"""Utilities: the MR-STFT loss and synthetic audio. PyTorch counterpart of
+the loss part of ``dasp_tpu/utils`` and of its ``synthetic_batch``."""
 
+from .audio import synthetic_batch
 from .loss import (
     a_weighting,
     a_weighting_fir_taps,
@@ -19,4 +20,5 @@ __all__ = [
     "multi_resolution_stft_loss",
     "stft_loss",
     "stft_magnitude",
+    "synthetic_batch",
 ]

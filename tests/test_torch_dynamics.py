@@ -655,8 +655,8 @@ def test_mastering_step_matches_jax():
     p_true = np.clip(0.5 + 0.25 * rng.standard_normal((2, 29)), 0.05, 0.95).astype(dtype)
     z0 = (0.3 * rng.standard_normal((2, 29))).astype(dtype)
 
-    chain, z, opt = TR.make_mastering_dynamics(SR, bs=2, device="cpu")
-    assert chain.num_params == 29 and z.shape == (2, 29) and not z.detach().abs().max() > 0
+    chain, z, opt = TR.make_mastering(SR, bs=2, device="cpu")
+    assert chain.num_params == 47 and z.shape == (2, 47) and not z.detach().abs().max() > 0
     chain = P.Chain([P.TransientShaper(SR), P.MultibandCompressor(SR), P.Exciter(SR), P.Limiter(SR, smoother="exact")])
     with torch.no_grad():
         target = chain.process_normalized(t(mix), t(p_true), clip_params=True).numpy()
@@ -684,4 +684,4 @@ def test_mastering_entry_points_build_on_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TR.make_mastering_dynamics(SR)
+        TR.make_mastering(SR)

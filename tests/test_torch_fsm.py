@@ -36,13 +36,8 @@ PARITY_TOL = 1e-4
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
 # public names of dasp_tpu that the port does not have yet; each PR that
-# ports one takes it out (ROADMAP.md Queue 1)
-NOT_YET_PORTED = {
-    "AutoWah", "ConvolutionReverb", "Delay", "DynamicEQ", "Phaser", "PitchShiftPV", "RingModulator",
-    "SpectralGate", "StereoImager", "TimeStretch", "Tremolo", "WowFlutter",
-    "auto_wah", "convolution_reverb", "delay", "dynamic_eq", "phaser", "pitch_shift_pv", "ring_modulator",
-    "spectral_gate", "spectral_noise_profile", "stereo_imager", "time_stretch", "tremolo", "wow_flutter",
-}
+# ported one took it out (ROADMAP.md Queue 1); none is left
+NOT_YET_PORTED = set()
 # subpackages of the port that the JAX package's top level does not name
 PORT_ONLY = {"models", "modules", "train", "utils"}
 
