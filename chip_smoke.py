@@ -3,8 +3,8 @@
 
 Builds the hand-written CUDA kernels from ``dasp_tpu_torch/csrc`` and drives
 the port's style-transfer render and training step, its blind estimation
-of the pitch shifter and chorus, its mastering step and its denoising step
-at full width:
+of the pitch shifter and chorus, its mastering step, its denoising step and
+its serving path at full width:
 
   phase 0  the card: name and power limit (nvidia-smi); fails without CUDA
   phase 1  build (nvcc, sm_90a) and load the kernels; build time
@@ -142,6 +142,24 @@ at full width:
            backward / Adam by CUDA events, no kernel launched, finite loss
            and gradient, z changed; one step's loss and gradient of z
            against float64 on the card
+  phase 19 the serving path: benchmarks/streaming_latency.py's two chains
+           through streaming.StreamChain, stereo, 131072 samples. Classic
+           (parametric EQ "coupled" -> compressor -> reverb with a
+           65536-tap IR) at bs 1 and 8, chunks of 128, 512 and 2048, the
+           compressor's smoother "block" and "exact" (kernel B); mastering
+           (transient shaper -> dynamic EQ -> exciter -> limiter "exact")
+           at bs 1, chunks of 512 and 2048. Each: chunked against the
+           offline render of the same chain (STREAM_TOL), "exact" bitwise
+           against the same stream on the plain loop (over its first
+           PLAIN_CHECK_T samples), one B-fwd launch a chunk and no B-bwd,
+           ms a chunk (p50 and p99 of the main run's chunks after 20, at
+           least 200, by CUDA events and by the host clock), the real-time
+           margin, each stage's ms and the device work a chunk.
+           Integrated loudness of the mastering output, "coupled" and
+           "pallas" (kernel A, one launch), against float64 on the card;
+           the 997 Hz calibration; the mastering chain's processors through
+           save_preset / load_preset render the same bits; B-fwd alone on
+           2 x 128 and 2 x 2048 with y0
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -283,6 +301,26 @@ WOLA_DELAY_LAUNCHES = {"wow_flutter": {"frac_delay": 1, "frac_delay_bwd": 1}}
 ROUNDTRIP_TOL = 1e-5
 # phase 18: examples/denoise.py's noise level (dB)
 DENOISE_NOISE_DB = -30.0
+# phase 19: benchmarks/streaming_latency.py's serving chains, their batch
+# sizes and chunk lengths, the classic chain's EQ and compressor values,
+# and the chunks of a stream's run left untimed, and the fewest timed
+STREAM_BS = {"classic": (1, 8), "mastering": (1,)}
+STREAM_CHUNKS = {"classic": (128, 512, 2048), "mastering": (512, 2048)}
+STREAM_EQ = (2.0, 200.0, 0.7, 3.0, 400.0, 1.0, -2.0, 3000.0, 2.0, 1.0, 9000.0, 1.0, 2.0, 13000.0, 1.0, -3.0, 8000.0, 0.7)
+STREAM_COMP = dict(threshold_db=-24.0, ratio=4.0, attack_ms=10.0, release_ms=60.0, knee_db=6.0, makeup_gain_db=1.0)
+STREAM_WARMUP = 20
+STREAM_TIMED = 200
+# phase 19: chunked against offline, of max(1, peak): the largest of
+# tests/test_streaming.py's atols along each chain (the EQ's and the
+# limiter's 5e-4)
+STREAM_TOL = 5e-4
+# phase 19: integrated loudness in fp32 ("coupled", "pallas") against
+# float64 on the card (LU), and the 997 Hz calibration: -3.01 LUFS within
+# tests/test_utils.py's 0.1 (the cookbook K-weighting of both packages
+# reads -3.052 at 44.1 kHz)
+LOUDNESS_TOL = 1e-3
+CALIBRATION_LUFS = -3.01
+CALIBRATION_TOL = 0.1
 
 
 # an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
@@ -2471,6 +2509,299 @@ def phase_denoise(seed, device, card):
     require(g_rel <= TRAIN_GRAD_NORM_TOL, f"denoise gradient rel err {g_rel:.3e} > {TRAIN_GRAD_NORM_TOL}")
 
 
+def classic_chain(bs, chunk, smoother, seed, device):
+    """benchmarks/streaming_latency.py's "classic" serving chain through
+    ``StreamChain``: parametric EQ ("coupled", the bench's 18 values) ->
+    compressor (``smoother`` "block" or "exact") -> filtered-noise reverb
+    (65536-tap IR, frequency-domain noise from ``seed``, mix 0.3), and the
+    offline render of the same chain (kernel B for "exact", whose chunked
+    evaluation phase 3 holds to one pass)."""
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch import streaming as S
+
+    eq = [torch.full((bs,), v, device=device) for v in STREAM_EQ]
+    comp = {k: torch.full((bs,), v, device=device) for k, v in STREAM_COMP.items()}
+    rev0 = S.reverb_stream_init(
+        SR, torch.full((bs, 12), 0.6), torch.full((bs, 12), 0.4), 0.3,
+        torch.Generator(device=device).manual_seed(seed), num_samples=IR, chunk_len=chunk, device=device)
+    chain = S.StreamChain([
+        ("eq", lambda c, s: S.parametric_eq_stream(c, SR, *eq, zi=s)),
+        ("comp", lambda c, s: S.compressor_stream(c, SR, **comp, zi=s, smoother=smoother)),
+        ("rev", lambda c, s: S.reverb_stream(c, rev0 if s is None else s)),
+    ])
+
+    def offline(x):
+        y = F.parametric_eq(x, SR, *eq, filter_method="coupled")
+        y = F.compressor(y, SR, **comp, smoother={"block": "block", "exact": "exact_pallas"}[smoother])
+        return F.convolution_reverb(y, SR, 0.3, rev0["ir"])
+
+    return chain, offline
+
+
+def mastering_stream_chain(bs, device):
+    """benchmarks/streaming_latency.py's "mastering" serving chain through
+    ``StreamChain``: transient shaper -> dynamic EQ (3 bands) -> exciter ->
+    limiter (``smoother="exact"``: kernel B), and its offline render. The
+    dynamic EQ's stream is the offline render delayed by its WOLA lookahead
+    (frame_size - hop = 768 samples), whose frames equal the offline
+    render's on the input led by that many zeros (frames of zeros give a
+    unit response and leave the ballistics at rest); the exciter and the
+    limiter then run on the delayed signal, as in the stream."""
+    import torch
+    import torch.nn.functional as nnf
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch import streaming as S
+
+    def full(v, n=None):
+        return torch.full((bs,) if n is None else (bs, n), v, device=device)
+
+    ts = dict(attack=full(0.6), sustain=full(-0.4))
+    deq = dict(frequency_hz=torch.tensor([[200.0, 1500.0, 6000.0]] * bs, device=device), q_factor=full(2.0, 3),
+               threshold_db=full(-24.0, 3), ratio=full(4.0, 3), attack_ms=full(5.0, 3), release_ms=full(80.0, 3))
+    exc = [full(v) for v in (3000.0, 12.0, 0.4)]
+    lim = {k: full(v) for k, v in dict(threshold_db=-3.0, attack_ms=2.0, release_ms=80.0, knee_db=3.0,
+                                       makeup_gain_db=0.0).items()}
+    chain = S.StreamChain([
+        ("ts", lambda c, s: S.transient_shaper_stream(c, SR, **ts, state=s)),
+        ("deq", lambda c, s: S.dynamic_eq_stream(c, SR, **deq, state=s)),
+        ("exc", lambda c, s: S.exciter_stream(c, SR, *exc, zi=s)),
+        ("lim", lambda c, s: S.limiter_stream(c, SR, **lim, zi=s, smoother="exact")),
+    ])
+    left = 1024 - 256  # the dynamic EQ's frame_size - hop
+
+    def offline(x):
+        y = F.transient_shaper(x, SR, **ts)
+        y = F.dynamic_eq(nnf.pad(y, (left, 0)), SR, **deq)[..., : x.shape[-1]]
+        y = F.exciter(y, SR, *exc)
+        return F.limiter(y, SR, **lim, smoother="exact_pallas")
+
+    return chain, offline
+
+
+def run_stream(chain, x, chunk, timed: int = 0):
+    """``x`` (bs, ch, T) through ``chain`` chunk by chunk from rest; the
+    output and the last state. With ``timed``, each chunk is also timed
+    alone as a server runs it, from its call to its output on the card: by
+    CUDA events around the call and by the host clock to the end of the
+    event's wait. The first STREAM_WARMUP chunks are not timed, and the
+    stream goes on through ``x`` again (those outputs dropped) until
+    ``timed`` chunks are; then also returns the p50 and p99 of each, ms."""
+    import numpy as np
+    import torch
+
+    chunks = x.split(chunk, dim=-1)
+    outs, state, dev, host = [], None, [], []
+    i = 0
+    while i < len(chunks) or len(dev) < timed:
+        if timed:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+        y, state = chain(chunks[i % len(chunks)], state)
+        if timed:
+            end.record()
+            end.synchronize()
+            if i >= STREAM_WARMUP:
+                host.append((time.perf_counter() - t0) * 1e3)
+                dev.append(start.elapsed_time(end))
+        if i < len(chunks):
+            outs.append(y)
+        i += 1
+    y = torch.cat(outs, dim=-1)
+    if not timed:
+        return y, state
+    return y, state, {k: tuple(float(v) for v in np.percentile(a, [50, 99])) for k, a in (("dev", dev), ("host", host))}
+
+
+def stage_split(chain, x, chunk, n: int = 20):
+    """Where a chunk's time goes: each stage of ``chain`` timed alone
+    (synchronized before and after, host clock) over ``n`` chunks from
+    rest, the mean ms of each; and the device work a chunk over 10 more
+    (profiler, all kernels)."""
+    import torch
+
+    chunks = x.split(chunk, dim=-1)
+    state, ms = {}, {name: 0.0 for name, _ in chain.steps}
+    for i in range(n):
+        c = chunks[i % len(chunks)]
+        for name, fn in chain.steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c, state[name] = fn(c, state.get(name))
+            torch.cuda.synchronize()
+            ms[name] += (time.perf_counter() - t0) * 1e3 / n
+    it = iter(range(n, n + 10**6))
+
+    def step():
+        nonlocal state
+        _, state = chain(chunks[next(it) % len(chunks)], state)
+
+    return ms, device_ms_by_kernel(step, (), 10)["all"]
+
+
+@contextlib.contextmanager
+def streams_on_plain_ballistics():
+    """The streams' ``"exact"`` ballistics on the plain loop (the kernel's
+    plain engine, on the card) while the block runs."""
+    from dasp_tpu_torch import streaming as S
+    from dasp_tpu_torch.ops.ballistics_kernel import ballistics_plain
+
+    kernel = S.ballistics_pallas
+    S.ballistics_pallas = ballistics_plain
+    try:
+        yield
+    finally:
+        S.ballistics_pallas = kernel
+
+
+def check_stream(what, chain, offline, x, chunk, smoother, card):
+    """One serving configuration: the main path (the stream over x from
+    rest, launch counts zeroed just before and read just after), chunked
+    against offline, for "exact" bitwise against the plain loop, and the
+    serving latency. Returns the launches, the output and a result row."""
+    import torch
+
+    n_chunks = x.shape[-1] // chunk
+    n_run = max(n_chunks, STREAM_WARMUP + STREAM_TIMED)
+    reset_launch_counts()
+    y, _, t = run_stream(chain, x, chunk, timed=STREAM_TIMED)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want = {"ballistics": n_run} if smoother == "exact" else {}
+    require(launches == want, f"{what}: launches {launches}, expected {want}")
+    require(bool(torch.isfinite(y).all()) and y.shape == (x.shape[0], 2, x.shape[-1]), f"{what}: bad output")
+    ref = offline(x)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((y - ref).abs().max()) / scale
+    require(err <= STREAM_TOL, f"{what}: chunked differs from offline by {err:.3e} of max(1, peak) > {STREAM_TOL}")
+    plain = "-"
+    if smoother == "exact":
+        # the plain loop's few launches a sample take about 10 s a stream:
+        # the same stream over its first PLAIN_CHECK_T samples
+        with streams_on_plain_ballistics():
+            t0 = time.perf_counter()
+            y_plain, _ = run_stream(chain, x[..., :PLAIN_CHECK_T], chunk)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        y_head = y[..., :PLAIN_CHECK_T]
+        require(torch.equal(y_head, y_plain), f"{what}: the kernel path is not bitwise the plain loop's "
+                f"({float((y_head - y_plain).abs().max()):.3e})")
+        plain = f"the first {PLAIN_CHECK_T} samples bitwise the plain loop's ({plain_s:.1f} s host clock)"
+    stages, device = stage_split(chain, x, chunk)
+    chunk_ms = chunk / SR * 1e3
+    row = {"chunk": chunk, "chunk_ms": chunk_ms, "p50_ms": t["dev"][0], "p99_ms": t["dev"][1],
+           "host_p50_ms": t["host"][0], "host_p99_ms": t["host"][1], "margin": chunk_ms / t["dev"][0],
+           "device_ms": device, "stages_ms": stages, "err": err, "launches": launches}
+    print(f"[stream] {what}: {n_chunks} chunks of x ({n_run} run), launches {launches or 'none'}; chunked vs "
+          f"offline {err:.3e} of max(1, peak); {plain}; per chunk (CUDA events, {n_run - STREAM_WARMUP} chunks after "
+          f"{STREAM_WARMUP}) p50 {t['dev'][0]:.4f} ms, p99 "
+          f"{t['dev'][1]:.4f} ms; host clock p50 {t['host'][0]:.4f} ms, p99 {t['host'][1]:.4f} ms; real-time "
+          f"margin {row['margin']:.2f}x ({chunk_ms:.3f} ms of audio); device work {fmt_ms(device)} a chunk "
+          f"(profiler); stages (synchronized, host clock) "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()) + f" | {card}")
+    return launches, y, row
+
+
+def phase_streaming(seed, device, card):
+    """Phase 19: the serving path. The two chains of
+    benchmarks/streaming_latency.py through StreamChain at full width
+    (stereo, 131072 samples, a 65536-tap IR): each configuration chunked
+    against its offline render, "exact" bitwise against the plain loop,
+    one B-fwd launch a chunk and no B-bwd, latency and real-time margin;
+    integrated loudness of the mastering output ("coupled", and "pallas":
+    kernel A, one launch) against float64 on the card and the 997 Hz
+    calibration; the mastering chain's processors through save_preset /
+    load_preset, rendering the same bits. Returns the main paths' launches
+    summed."""
+    import tempfile
+
+    import torch
+
+    from dasp_tpu_torch import modules as M
+    from dasp_tpu_torch import utils as U
+    from dasp_tpu_torch.ops.ballistics_kernel import ballistics_pallas
+
+    total = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    rows = []
+    with torch.no_grad():
+        for bs in STREAM_BS["classic"]:
+            x = 0.3 * torch.randn((bs, 2, T), generator=gen, device=device)
+            for chunk in STREAM_CHUNKS["classic"]:
+                for smoother in ("block", "exact"):
+                    chain, offline = classic_chain(bs, chunk, smoother, seed, device)
+                    what = f"classic bs {bs} chunk {chunk} compressor {smoother!r}"
+                    launches, _, row = check_stream(what, chain, offline, x, chunk, smoother, card)
+                    count(launches)
+                    rows.append((what, row))
+        x = 0.3 * torch.randn((1, 2, T), generator=gen, device=device)
+        for chunk in STREAM_CHUNKS["mastering"]:
+            chain, offline = mastering_stream_chain(1, device)
+            what = f"mastering bs 1 chunk {chunk} limiter 'exact'"
+            launches, y_master, row = check_stream(what, chain, offline, x, chunk, "exact", card)
+            count(launches)
+            rows.append((what, row))
+
+        # loudness of the mastering output: fp32 against float64 on the card
+        reset_launch_counts()
+        l_c = U.integrated_loudness(y_master, SR)
+        require(not any(launch_counts().values()), "loudness 'coupled' launched a kernel")
+        reset_launch_counts()
+        l_p = U.integrated_loudness(y_master, SR, filter_method="pallas")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        require(launches == {"sosfilt_cascade": 1}, f"loudness 'pallas' launches {launches}")
+        count(launches)
+        l_64 = U.integrated_loudness(y_master.double(), SR)
+        errs = {m: abs(float(v) - float(l_64)) for m, v in (("coupled", l_c), ("pallas", l_p))}
+        n = torch.arange(T, dtype=torch.float64, device=device) / SR
+        sine = torch.sin(2 * math.pi * 997.0 * n).float()[None, None, :]
+        l_sine = float(U.integrated_loudness(sine, SR))
+        l_sine64 = float(U.integrated_loudness(sine.double(), SR))
+        print(f"[stream] loudness of the mastering output: coupled {float(l_c):.6f}, pallas (A, 1 launch) "
+              f"{float(l_p):.6f}, float64 {float(l_64):.6f} LUFS (errors {errs['coupled']:.2e}, {errs['pallas']:.2e} "
+              f"LU); 0 dBFS 997 Hz sine {l_sine:.6f} LUFS (float64 {l_sine64:.6f}) | {card}")
+        for m, e in errs.items():
+            require(e <= LOUDNESS_TOL, f"loudness {m!r} {e:.3e} LU from float64 > {LOUDNESS_TOL}")
+        require(abs(l_sine - l_sine64) <= LOUDNESS_TOL, f"997 Hz sine {l_sine} vs float64 {l_sine64}")
+        require(abs(l_sine - CALIBRATION_LUFS) <= CALIBRATION_TOL,
+                f"997 Hz sine reads {l_sine:.4f} LUFS, not {CALIBRATION_LUFS} +- {CALIBRATION_TOL}")
+
+        # the mastering chain's processors through a preset file
+        chain = M.Chain([M.TransientShaper(SR), M.DynamicEQ(SR, num_bands=3), M.Exciter(SR),
+                         M.Limiter(SR, smoother="exact_pallas")])
+        p = torch.rand((1, chain.num_params), generator=gen, device=device)
+        y1 = chain.process_normalized(x, p, clip_params=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "mastering.json")
+            U.save_preset(path, chain, p, metadata={"chain": "mastering"})
+            chain2, p2 = U.load_preset(path)
+        y2 = chain2.process_normalized(x, p2.to(device), clip_params=True)
+        require(torch.equal(p2.to(device), p), "preset parameters changed on the round trip")
+        require(torch.equal(y1, y2), f"preset round trip renders {float((y1 - y2).abs().max()):.3e} off")
+        print(f"[stream] preset round trip of Chain([{', '.join(type(q).__name__ for q in chain.processors)}]), "
+              f"{chain.num_params} parameters: the same bits on the card")
+
+        # B-fwd alone on the streams' short rows, with y0
+        for t_len in (128, 2048):
+            g = -torch.rand((2, 1, t_len), generator=gen, device=device) * 20.0
+            aa, ar = torch.full((2,), 0.99, device=device), torch.full((2,), 0.9999, device=device)
+            y0 = torch.full((2, 1), -3.0, device=device)
+            fn = lambda: ballistics_pallas(g, aa, ar, y0=y0)  # noqa: E731
+            print(f"[stream] B-fwd on 2 x {t_len} with y0: {cuda_ms(fn, 200):.4f} ms a call (CUDA events), kernel "
+                  f"alone {fmt_ms(kernel_device_ms(fn, 'ballistics_kernel', 50))} (profiler) | {card}")
+    print("[stream] " + json.dumps({what: {k: v for k, v in r.items() if k != "launches"} for what, r in rows}))
+    return total
+
+
 def time_frac_delay(tree, seed, device, card):
     """C-fwd and C-bwd (without and with dx) of the package imported from
     ``tree`` on phases 8-9's operands made from ``seed``: a call by CUDA
@@ -2566,6 +2897,8 @@ def main() -> int:
     phase_mastering(args.seed, device, card)
     phase_wola_delay(args.seed, device, card)
     phase_denoise(args.seed, device, card)
+    for k, v in phase_streaming(args.seed, device, card).items():
+        launches[k] = launches.get(k, 0) + v
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [
