@@ -3,8 +3,8 @@
 
 Builds the hand-written CUDA kernels from ``dasp_tpu_torch/csrc`` and drives
 the port's style-transfer render and training step, its blind estimation
-of the pitch shifter and chorus, its mastering step, its denoising step and
-its serving path at full width:
+of the pitch shifter and chorus, its mastering step, its denoising step,
+its serving path at full width, and its examples on wav files:
 
   phase 0  the card: name and power limit (nvidia-smi); fails without CUDA
   phase 1  build (nvcc, sm_90a) and load the kernels; build time
@@ -160,6 +160,22 @@ its serving path at full width:
            the 997 Hz calibration; the mastering chain's processors through
            save_preset / load_preset render the same bits; B-fwd alone on
            2 x 128 and 2 x 2048 with y0
+  phase 20 file-backed training on the card: mono and stereo 16-bit wavs
+           written by save_wav and indexed by index_wav_dataset (the
+           native library required); 16 batches of 8 x 2 x 131072 from
+           load_clip_batch through BatchPacker into device_prefetch (depth
+           3, one worker) bitwise their host batches, mono-mixed ones over
+           the i16 wire with the upload thread bitwise the host's decode;
+           ms a batch of a blocking copy and of device_prefetch. Then the
+           examples through main(argv) on --data-dir: auto_eq
+           --filter-method pallas (the auto_eq preset net, bs 8 x 131072)
+           4 steps, a checkpoint every 2, resumed to step 6;
+           blind_estimation of pitch_shift and of the compressor with
+           exact_pallas, 3 steps each; exact launches a step of A, C and
+           B; then quickstart (at tests/test_integration.py's threshold),
+           demo, mixing_console, streaming_demo, denoise, virtual_analog
+           with pre-placed amp pairs, every wav they write on the 16-bit
+           grid
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -321,6 +337,22 @@ STREAM_TOL = 5e-4
 LOUDNESS_TOL = 1e-3
 CALIBRATION_LUFS = -3.01
 CALIBRATION_TOL = 0.1
+
+# phase 20: the wav directory (mono and stereo 16-bit files of
+# DATA_SECONDS each from synthetic_batch), the batches held bitwise through
+# device_prefetch, and each example run through its main(argv): the steps,
+# and the kernel launches a step on the examples' kernel paths
+DATA_FILES = 8
+DATA_SECONDS = 6
+PREFETCH_BATCHES = 16
+PREFETCH_DEPTH = 3
+EXAMPLE_STEPS = {"auto_eq": 4, "auto_eq resumed": 2, "blind pitch_shift": 3, "blind compressor exact_pallas": 3}
+EXAMPLE_STEP_LAUNCHES = {
+    "auto_eq": {"sosfilt_cascade": 1, "sosfilt_cascade_save_all": 1, "sosfilt_cascade_adjoint": 1},
+    "blind pitch_shift": {"frac_delay": 2, "frac_delay_bwd": 1},
+    "blind compressor exact_pallas": {"ballistics": 2, "ballistics_bwd": 1},
+}
+EXAMPLE_STEP_LAUNCHES["auto_eq resumed"] = EXAMPLE_STEP_LAUNCHES["auto_eq"]
 
 
 # an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
@@ -2802,6 +2834,214 @@ def phase_streaming(seed, device, card):
     return total
 
 
+def run_example(name, argv):
+    """``dasp_tpu_torch.examples.<name>.main(argv)``, its output printed
+    with a prefix and returned, with its launches and wall time."""
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(f"dasp_tpu_torch.examples.{name}")
+    out = io.StringIO()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    for line in out.getvalue().splitlines():
+        print(f"[files] {name}: {line}")
+    return res, out.getvalue(), launches, wall
+
+
+def on_pcm_grid(path) -> bool:
+    import numpy as np
+
+    from dasp_tpu_torch.utils import load_wav
+
+    audio, sr = load_wav(str(path))
+    return sr == SR and audio.size > 0 and bool(np.array_equal(audio * 32768, np.round(audio * 32768)))
+
+
+def prefetch_bitwise(host, device, depth: int, wire) -> None:
+    """Phase 20's input check: the numpy batches ``host`` (on the 16-bit
+    grid) through a one-worker threaded_iterator and device_prefetch at
+    ``depth`` over ``wire`` (a BatchPacker takes ``{"audio": batch}``),
+    each batch on the device compared bitwise with its host batch as soon
+    as it is yielded (the host batches are on the card beforehand). At
+    depth 1 with the f32 wire the yielded tensor is the copy's own
+    destination, whose copy was issued just before: a consumer that did not
+    wait for it would read a partial copy."""
+    import torch
+
+    from dasp_tpu_torch.utils import BatchPacker, device_prefetch, threaded_iterator
+
+    packed = isinstance(wire, BatchPacker)
+    refs = [torch.from_numpy(h).to(device) for h in host]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    source = threaded_iterator(lambda wid: ({"audio": h} if packed else h for h in host), num_workers=1)
+    got = 0
+    for ref, b in zip(refs, device_prefetch(source, size=depth, device=device, wire=wire)):
+        b = b["audio"] if packed else b
+        require(b.device.type == device.type, "device_prefetch left a batch on the host")
+        require(torch.equal(b, ref), f"depth {depth}: batch {got} on the card differs from its host batch")
+        got += 1
+    require(got == len(host), f"depth {depth}: device_prefetch yielded {got} of {len(host)} batches")
+
+
+def phase_files(seed, device, card):
+    """Phase 20: file-backed training on the card. A directory of mono and
+    stereo 16-bit wavs written by the port's save_wav and indexed by
+    index_wav_dataset (native library required); PREFETCH_BATCHES stereo
+    batches from load_clip_batch through BatchPacker into device_prefetch
+    (depth 3, one worker) bitwise their host batches, and mono-mixed ones
+    over the i16 wire with the upload thread bitwise the host decode; ms a
+    batch of a blocking copy and of device_prefetch. Then the examples
+    through their main(argv) on --data-dir: auto_eq --filter-method pallas
+    (the auto_eq preset net, bs 8 x 131072) 4 steps with a checkpoint every
+    2, resumed to step 6; blind_estimation of pitch_shift and of the
+    compressor with exact_pallas, 3 steps each; exact launches a step of
+    kernels A, C and B, finite losses. Then quickstart (tests/
+    test_integration.py's threshold), demo, mixing_console, streaming_demo,
+    denoise and virtual_analog with pre-placed amp pairs; every wav they
+    write reads back on the 16-bit grid. Returns the launches summed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch import native
+    from dasp_tpu_torch.utils import (BatchPacker, device_prefetch, index_wav_dataset, load_clip_batch, save_wav,
+                                      synthetic_batch, wire_decode, wire_encode)
+
+    require(native.available(), "the native wav library did not build or load")
+    print(f"[files] native library {native.lib_path().name} serves wav I/O, indexing and batch loading")
+    total = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "wavs"
+        data.mkdir()
+        rng = np.random.default_rng(seed + 20)
+        n = DATA_SECONDS * SR
+        for i in range(DATA_FILES):
+            clips = synthetic_batch(rng, 2, n, SR, kind="mixed" if i % 2 else "chirp")
+            audio = clips[0] if i % 2 == 0 else np.concatenate([clips[0], clips[1]])
+            save_wav(str(data / f"{'mono' if i % 2 == 0 else 'stereo'}_{i}.wav"), audio, SR)
+        index = index_wav_dataset(str(data), T)
+        print(f"[files] {DATA_FILES} wavs of {DATA_SECONDS} s (mono and stereo) -> {len(index)} chunks of {T}")
+        require(len(index) == DATA_FILES * (n // T), f"index has {len(index)} chunks")
+
+        # the input path: batches on the card bitwise their host batches
+        picks = [[index[j] for j in rng.choice(len(index), BS)] for _ in range(PREFETCH_BATCHES)]
+        host = [load_clip_batch(p, T, channels=2, mono_mix=False, pad_mode="repeat") for p in picks]
+        require(all(np.array_equal(h * 32768, np.round(h * 32768)) for h in host), "host batches off the PCM grid")
+        packer = BatchPacker({"audio": host[0]})
+        prefetch_bitwise(host, device, PREFETCH_DEPTH, packer)
+        prefetch_bitwise([np.concatenate(host[i:i + 4]) for i in range(0, len(host), 4)], device, 1, "f32")
+        mono = [load_clip_batch(p, T, channels=1, mono_mix=True) for p in picks[:8]]
+        want = [wire_decode(wire_encode(m, "i16")) for m in mono]
+        pipe = device_prefetch(iter(mono), size=PREFETCH_DEPTH, device=device, wire="i16", upload_thread=True)
+        for i, (w, b) in enumerate(zip(want, pipe)):
+            require(torch.equal(b, w.to(device)), f"mono batch {i}: the card's i16 decode differs from the host's")
+        print(f"[files] {PREFETCH_BATCHES} stereo batches of {BS} x 2 x {T} through BatchPacker ({packer.nbytes} "
+              f"bytes a batch) and device_prefetch (depth {PREFETCH_DEPTH}, one worker), and the same as 4 batches "
+              f"of {4 * BS} at depth 1 over the f32 wire (each read as its copy may still run): bitwise their host "
+              f"batches; 8 mono-mixed batches over the i16 wire with the upload thread: bitwise the host's decode")
+
+        def blocking():
+            for h in host:
+                torch.from_numpy(h).to(device).sum()
+
+        def prefetched(wire):
+            def run():
+                for b in device_prefetch(iter(host), size=PREFETCH_DEPTH, device=device, wire=wire):
+                    b.sum()
+            return run
+
+        runs = (("blocking", blocking), ("i16", prefetched("i16")), ("f32", prefetched("f32")),
+                ("packer", prefetched(BatchPacker(host[0]))), ("blocking again", blocking))
+        for _, f in runs:
+            f()  # warm-up
+        ms = {k: host_ms(f) / len(host) for k, f in runs}
+        print(f"[files] ms a batch of {BS} x 2 x {T} fp32 ({host[0].nbytes} bytes) to the card (host clock, "
+              f"{len(host)} batches, nothing else on the card): blocking pageable copy {ms['blocking']:.3f} / "
+              f"{ms['blocking again']:.3f}; device_prefetch (pinned, side stream, depth {PREFETCH_DEPTH}) f32 wire "
+              f"{ms['f32']:.3f}, i16 wire {ms['i16']:.3f}, BatchPacker {ms['packer']:.3f} (the i16 encode runs on "
+              f"the host, in the consumer's thread) | {card}")
+
+        def count(launches):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
+        def check_run(what, res, launches, wall, log_dir):
+            steps = EXAMPLE_STEPS[what]
+            want = {k: v * steps for k, v in EXAMPLE_STEP_LAUNCHES[what].items()}
+            losses = res["losses"]
+            require(len(losses) == steps and all(math.isfinite(v) for v in losses), f"{what}: losses {losses}")
+            recs = [json.loads(line) for line in open(Path(log_dir) / "metrics.jsonl")]
+            require(recs and all(math.isfinite(r["loss"]) for r in recs), f"{what}: metrics {recs}")
+            require(launches == want, f"{what}: launches {launches}, expected {want} ({steps} steps)")
+            count(launches)
+            print(f"[files] {what}: {steps} steps, launches a step {EXAMPLE_STEP_LAUNCHES[what]} (exact), "
+                  f"losses {[round(v, 6) for v in losses]}, {wall:.2f} s through main, "
+                  f"{wall / steps * 1e3:.1f} ms a step with the first step's warm-up | {card}")
+
+        dev = ["--device", str(device), "--data-dir", str(data)]
+        log = Path(tmp) / "auto_eq"
+        argv = dev + ["--filter-method", "pallas", "--checkpoint-every", "2", "--log-dir", str(log)]
+        res, _, launches, wall = run_example("auto_eq", argv + ["--steps", "4"])
+        check_run("auto_eq", res, launches, wall, log)
+        require((log / "ckpt.pkl").exists() and on_pcm_grid(log / "recovered_3.wav"), "auto_eq: files missing")
+        res, out, launches, wall = run_example("auto_eq", argv + ["--steps", "6", "--resume"])
+        require("resumed from step 4" in out and res["start"] == 4, "auto_eq did not resume from step 4")
+        check_run("auto_eq resumed", res, launches, wall, log)
+        for proc, extra in (("pitch_shift", []), ("compressor", ["--smoother", "exact_pallas"])):
+            what = "blind " + " ".join([proc] + extra[1:])
+            log = Path(tmp) / f"blind_{proc}"
+            res, _, launches, wall = run_example(
+                "blind_estimation", dev + ["--processor", proc, *extra, "--steps", "3", "--log-dir", str(log)])
+            check_run(what, res, launches, wall, log)
+
+        # the other six at their smoke or small settings
+        out_dir = Path(tmp) / "out"
+        amps = Path(tmp) / "amps"
+        amps.mkdir()
+        pair = synthetic_batch(rng, 2, 4 * 8192, SR)
+        save_wav(str(amps / "idmt-rock-input-varying-gain.wav"), pair[0], SR)
+        save_wav(str(amps / "idmt-rock-clean2-jazz-amp-120.wav"), pair[1], SR)
+        # tests/test_integration.py's quickstart clip: 8192 samples from seed 0
+        wav_in = str(Path(tmp) / "quickstart_in.wav")
+        save_wav(wav_in, synthetic_batch(np.random.default_rng(0), 1, 8192, SR)[0], SR)
+        runs = [
+            ("quickstart", ["--wav", wav_in, "--iters", "300", "--lr", "0.05"], ["recovered.wav", "target.wav"]),
+            ("demo", [], ["dry.wav", "wet.wav"]),
+            ("mixing_console", ["--steps", "20"], ["mix.wav", "target.wav"]),
+            ("streaming_demo", ["--smoke"], ["dry.wav", "streamed.wav"]),
+            ("denoise", ["--smoke"], ["noisy.wav", "denoised.wav", "clean.wav"]),
+            ("virtual_analog", ["--amps", "jazz-amp", "--amp-audio-dir", str(amps), "--smoke", "--steps", "3"],
+             ["jazz-amp/audio/idmt-rock-clean2-jazz-amp-120-pred.wav", "jazz-amp/audio/"
+              "idmt-rock-clean2-jazz-amp-120-target.wav"]),
+        ]
+        for name, argv, files in runs:
+            where = out_dir / name
+            flag = "--log-dir" if name == "virtual_analog" else "--out-dir"
+            res, _, launches, wall = run_example(name, ["--device", str(device), flag, str(where), *argv])
+            count(launches)
+            for f in files:
+                require(on_pcm_grid(where / f), f"{name}: {f} missing or off the 16-bit grid")
+            if name == "quickstart":
+                require(res["loss"] < res["loss0"] / 20 and abs(res["drive"] - 16.0) < 4.0,
+                        f"quickstart: {res}")
+            print(f"[files] {name}: {wall:.2f} s through main, launches {launches}, wrote {', '.join(files)}, "
+                  f"each on the 16-bit grid | {card}")
+    print(f"[files] phase 20 took {time.perf_counter() - t_phase:.1f} s; launches {total} | {card}")
+    return total
+
+
 def time_frac_delay(tree, seed, device, card):
     """C-fwd and C-bwd (without and with dx) of the package imported from
     ``tree`` on phases 8-9's operands made from ``seed``: a call by CUDA
@@ -2898,6 +3138,8 @@ def main() -> int:
     phase_wola_delay(args.seed, device, card)
     phase_denoise(args.seed, device, card)
     for k, v in phase_streaming(args.seed, device, card).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in phase_files(args.seed, device, card).items():
         launches[k] = launches.get(k, 0) + v
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]

@@ -22,8 +22,13 @@ gate, dynamic EQ, phase-vocoder time stretch and pitch shift), with the
 whole mastering chain's step and the denoising step (``train``); the
 serving layer (``streaming``: every effect's chunk-by-chunk step with
 carried state, and ``StreamChain``); BS.1770 loudness and presets
-(``utils``). On CPU tensors the kernels' plain PyTorch versions run
-instead, so the package imports and runs without a GPU.
+(``utils``); the host side of training on wav files (``utils``: wav I/O
+on the ``native`` C++ runtime, the input pipeline to the card, metrics,
+checkpoints, debug checks, dataset acquisition) and the example
+applications (``examples``, each ``python -m
+dasp_tpu_torch.examples.<name>``). On CPU tensors the kernels' plain
+PyTorch versions run instead, so the package imports and runs without a
+GPU.
 
 Layouts at the public functions are the JAX package's: audio is
 (bs, ch, T), parameter tensors (bs, n_params).

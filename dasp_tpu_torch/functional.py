@@ -1163,7 +1163,7 @@ def noise_shaped_reverberation(
     ir = noise_shaped_ir(
         sample_rate, band_gains, band_decays,
         num_samples=num_samples, num_bandpass_taps=num_bandpass_taps,
-        generator=generator, noise=noise, noise_mode=noise_mode,
+        generator=generator, noise=noise, noise_mode=noise_mode, dtype=dtype,
     )
     y = fft_conv_causal(x, ir)
     return (1.0 - mix) * x + mix * y
@@ -1179,11 +1179,15 @@ def noise_shaped_ir(
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
     noise_mode: str = "time",
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The stereo filtered-noise impulse response, (bs, 2, num_samples), from
-    band gains and decays of shape (bs, 12) on (0, 1)."""
+    band gains and decays of shape (bs, 12) on (0, 1). The filter bank, the
+    noise and the envelopes' time axis are computed in ``dtype``; the gains
+    and decays keep theirs, so float64 gains with the default float32 give
+    a float64 IR over float32 noise, as in the JAX package."""
     bs = band_gains.shape[0]
-    dtype, device = band_gains.dtype, band_gains.device
+    device = band_gains.device
     filters = octave_band_filterbank(num_bandpass_taps, sample_rate, device=device, dtype=dtype)
     num_bands = filters.shape[0]
     pad_size = num_bandpass_taps - 1

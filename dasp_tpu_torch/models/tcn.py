@@ -74,12 +74,13 @@ class BatchNorm(nn.BatchNorm1d):
 
 class TCNBlock(nn.Module):
     """Strided dilated conv block: conv(s=2, dil=d) -> act -> BN ->
-    conv -> act -> BN, with ``activation`` "prelu" (the style-transfer
-    encoder's) or "relu" (the blind-estimation net's)."""
+    conv -> act -> BN, with ``activation`` "relu" (the default, as flax's
+    ``TCNBlock``; the blind-estimation net's) or "prelu" (the style-transfer
+    encoder's and the auto-EQ net's)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 dilation: int = 1, dtype: torch.dtype | None = None,
-                 activation: str = "prelu"):
+                 dilation: int = 1, activation: str = "relu",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if activation not in ("prelu", "relu"):
             raise ValueError(f"Unknown activation: {activation!r}. Expected 'prelu' or 'relu'.")
@@ -116,19 +117,23 @@ class ParameterNetwork(nn.Module):
 
     Presets: :meth:`blind_estimation` (channels 16-32-64-128-128, kernel 3,
     dilations 1..16, ReLU, linear head) and :meth:`auto_eq` (10 blocks of
-    256 channels, kernel 7, PReLU, 3-layer MLP head). The net runs in its
-    parameters' dtype; the JAX package's bf16 ``dtype`` option has no
-    caller and is not ported.
+    256 channels, kernel 7, PReLU, 3-layer MLP head).
+
+    ``dtype=torch.bfloat16`` computes as flax's ``dtype=jnp.bfloat16``: the
+    blocks as :class:`TCNBlock`'s, the time mean taken in fp32 and rounded
+    to bf16, the MLP's dense layers in bf16 (inputs, weights and biases cast
+    at the call); the head takes fp32. Parameters stay fp32.
     """
 
     def __init__(self, num_control_params: int,
                  channels: Sequence[int] = (16, 32, 64, 128, 128), kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 2, 4, 8, 16), activation: str = "relu",
-                 mlp_hidden: int = 0, in_channels: int = 1):
+                 mlp_hidden: int = 0, in_channels: int = 1, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         chans = [in_channels, *channels]
         self.blocks = nn.ModuleList(
-            TCNBlock(chans[i], ch, kernel_size, d, activation=activation)
+            TCNBlock(chans[i], ch, kernel_size, d, activation, dtype)
             for i, (ch, d) in enumerate(zip(channels, dilations))
         )
         widths = [chans[-1], *([mlp_hidden] * 2 if mlp_hidden else []), num_control_params]
@@ -140,9 +145,15 @@ class ParameterNetwork(nn.Module):
         h = x
         for block in self.blocks:
             h = block(h)
-        h = h.mean(dim=-1)  # aggregate over time
+        # aggregate over time (a bf16 mean accumulated in fp32, then rounded)
+        h = h.mean(dim=-1) if self.dtype is None else h.float().mean(dim=-1).to(h.dtype)
         for i in range(self.num_dense - 1):
-            h = torch.relu(getattr(self, f"dense{i}")(h))
+            dense = getattr(self, f"dense{i}")
+            if self.dtype is None:
+                h = dense(h)
+            else:
+                h = nnf.linear(h.to(self.dtype), dense.weight.to(self.dtype), dense.bias.to(self.dtype))
+            h = torch.relu(h)
         head = getattr(self, f"dense{self.num_dense - 1}")
         return torch.sigmoid(head(_at_least_f32(h)))
 
@@ -175,7 +186,7 @@ class Encoder(nn.Module):
         super().__init__()
         chans = [in_channels] + [ch_dim] * len(dilations)
         self.blocks = nn.ModuleList(
-            TCNBlock(chans[i], ch_dim, kernel_size, d, dtype) for i, d in enumerate(dilations)
+            TCNBlock(chans[i], ch_dim, kernel_size, d, "prelu", dtype) for i, d in enumerate(dilations)
         )
         self.dense0 = nn.Linear(ch_dim, 256)
         self.dense1 = nn.Linear(256, 256)

@@ -521,7 +521,7 @@ def reverb_stream_init(
     band_decays = torch.as_tensor(band_decays, dtype=dtype, device=device)
     ir = F.noise_shaped_ir(
         sample_rate, band_gains, band_decays, num_samples=num_samples,
-        num_bandpass_taps=num_bandpass_taps, generator=generator, noise_mode=noise_mode,
+        num_bandpass_taps=num_bandpass_taps, generator=generator, noise_mode=noise_mode, dtype=dtype,
     )
     return _conv_state(ir, mix, band_gains.shape[0], 2, chunk_len, dtype)
 

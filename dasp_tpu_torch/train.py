@@ -244,12 +244,12 @@ def make_blind_estimation(processor, *, device=None):
 
 
 def blind_estimation_loss(net: torch.nn.Module, processor, x: torch.Tensor, y: torch.Tensor,
-                          **effect_kwargs):
+                          auraloss_compat: bool = False, **effect_kwargs):
     """The loss of a blind-estimation step: the net (train mode) estimates
     normalized parameters from the target ``y``, ``x`` is re-rendered with
-    them, and the default STFT loss compares the two renders.
-    ``effect_kwargs`` go to the effect (e.g. ``adjoint="ad"`` for the dense
-    plain fractional delay).
+    them, and the STFT loss (the default one, or auraloss's semantics with
+    ``auraloss_compat``) compares the two renders. ``effect_kwargs`` go to
+    the effect (e.g. ``adjoint="ad"`` for the dense plain fractional delay).
 
     Returns:
         ``(loss, p_hat)``.
@@ -257,12 +257,12 @@ def blind_estimation_loss(net: torch.nn.Module, processor, x: torch.Tensor, y: t
     net.train()
     p_hat = net(y)
     y_hat = processor.process_normalized(x, p_hat, clip_params=True, **effect_kwargs)
-    return stft_loss(y_hat, y), p_hat
+    return stft_loss(y_hat, y, auraloss_compat=auraloss_compat), p_hat
 
 
 def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Optimizer,
                           x: torch.Tensor, rand_params: torch.Tensor,
-                          mark: Optional[Callable[[str], None]] = None):
+                          mark: Optional[Callable[[str], None]] = None, auraloss_compat: bool = False):
     """One blind-estimation step (see the module docstring). Updates the
     net's parameters and BatchNorm statistics and the optimizer's state in
     place.
@@ -273,6 +273,7 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
             (bs, processor.num_params), on (0, 1).
         mark: called with "target", "forward", "backward" and "optimizer"
             as each part ends (e.g. to record CUDA events).
+        auraloss_compat: the STFT loss with auraloss's semantics.
 
     Returns:
         ``(loss, param_l1)``, detached: the STFT loss and the mean absolute
@@ -282,7 +283,7 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
     with torch.no_grad():
         y = processor.process_normalized(x, rand_params, clip_params=True)
     mark("target")
-    loss, p_hat = blind_estimation_loss(net, processor, x, y)
+    loss, p_hat = blind_estimation_loss(net, processor, x, y, auraloss_compat)
     mark("forward")
     opt.zero_grad(set_to_none=True)
     loss.backward()

@@ -133,7 +133,7 @@ def test_converter_rejects_left_over_and_missing_leaves():
 
 
 def test_tcn_block_conventions():
-    blk = TCNBlock(1, 4, kernel_size=7, dilation=2)
+    blk = TCNBlock(1, 4, kernel_size=7, dilation=2, activation="prelu")
     assert blk.prelu0.weight.item() == pytest.approx(0.01)
     assert blk.prelu0.weight.numel() == 1 and blk.bn0.eps == 1e-5
     # VALID strided dilated conv: floor((T - d (k - 1) - 1) / 2) + 1, then k - 1 less
