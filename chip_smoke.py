@@ -176,6 +176,36 @@ its serving path at full width, and its examples on wav files:
            demo, mixing_console, streaming_demo, denoise, virtual_analog
            with pre-placed amp pairs, every wav they write on the 16-bit
            grid
+  phase 21 the parallel layer (dasp_tpu_torch.parallel) and the last two
+           examples. (a) A one-rank NCCL world on the card runs
+           style_transfer's main --dp at full width (StyleTransferNet(),
+           bs 8 x 262144, 65536-tap IR, --filter-method pallas --smoother
+           exact_pallas) for STYLE_STEPS steps with a checkpoint, then
+           resumes for one more: finite losses, exact A and B launches a
+           step, ms a step. (b) gloo
+           ranks sharing cuda:0 (sp 2 and 4) on a compressor's curve at
+           8 x 2 x 131072: the exact relay bitwise the unsharded B-fwd,
+           one B-fwd and one B-bwd launch a rank, its gradient against
+           float64 within B_BWD_TOL; its wall time beside one unsharded
+           B-fwd (ranks that share one card: correctness and launches, not
+           multi-card speed). (c) The same ranks: every other sharded
+           function (conv, coupled EQ, one-pole, "attack_only" and
+           "parallel" ballistics, tv filter and power, MR-STFT loss)
+           against the unsharded port on the card at the CPU tests'
+           tolerances. (d) dp 2 x sp 2 gloo ranks run style_transfer's step
+           at full width (EQ "coupled", the reverb's convolution and the
+           relay sharded, BatchNorm over dp) against the one-rank step at
+           the same numerics: the loss within 2e-5 and the BatchNorm
+           statistics within 1e-5 (tests/test_torch_parallel_step.py's fp32
+           bars); the gradient of each part of the net (encoder blocks,
+           encoder dense layers, projectors) within the larger of 3e-3
+           and 3 x that part's fp32 noise floor, the one-rank step's own
+           distance on clips moved by an ulp (at full width the L1
+           log-magnitude loss moves the encoder blocks' gradient by
+           percents on such clips). A planted fault, BatchNorm on each
+           rank's own statistics, must break that gradient bar. 2 B-fwd
+           and 1 B-bwd a rank. (e)
+           mastering's main on one rank, exact B launches
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -186,7 +216,9 @@ functions, so ``library_ms`` is null), then as its last line
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 ``python3 chip_smoke.py --time-ballistics-of DIR`` only times kernel B's two
 launches of the package in the checkout DIR (see :func:`time_ballistics`),
-``--time-frac-delay-of DIR`` kernel C's (see :func:`time_frac_delay`).
+``--time-frac-delay-of DIR`` kernel C's (see :func:`time_frac_delay`),
+and ``--time-style-step`` splits style_transfer's step (see
+:func:`time_style_step`).
 """
 
 from __future__ import annotations
@@ -3042,6 +3074,460 @@ def phase_files(seed, device, card):
     return total
 
 
+# phase 21: the parallel layer
+PARALLEL_SP = (2, 4)
+PARALLEL_CONV_IR = 16384  # (c)'s IR: a halo that a block of T / 4 holds
+STYLE_STEPS = 5
+# the CPU tests' tolerances (tests/test_torch_parallel.py, _step.py)
+PARALLEL_TOL = {"conv": 1e-4, "coupled": 5e-4, "onepole": (2e-5, 2e-4), "tv filter": 2e-5, "tv power": 2e-4,
+                "loss": 1e-6}
+DPSP_LOSS_TOL, DPSP_GRAD_TOL, DPSP_STATS_TOL = 2e-5, 3e-3, 1e-5
+# at full width fp32 alone moves the encoder blocks' gradient by percents
+# (see phase_parallel); (d) holds each part of the net's gradient to this
+# many times that part's noise, or to DPSP_GRAD_TOL where it is smaller
+DPSP_NOISE_FACTOR = 3.0
+DPSP_PARTS = ("encoder.blocks", "encoder.dense", "projectors")
+# style_transfer's step launches on one card with EQ "pallas" and smoother
+# "exact_pallas", and each rank's under sp with EQ "coupled" and the relay
+DPSP_RANK_LAUNCHES = {"ballistics": 2, "ballistics_bwd": 1}
+def _on_card(rank, target, args):
+    """A spawned gloo rank on cuda:0, with the parent's fp32 settings."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return target(rank, *args)
+
+
+def spawn_ranks(world, target, args):
+    """``target(rank, *args)`` on ``world`` spawned gloo ranks that share
+    cuda:0; their results in rank order. Every process has ended (or was
+    terminated after 10 minutes) before this returns."""
+    from dasp_tpu_torch.parallel import spawn
+
+    return spawn(world, _on_card, (target, args), threads=max(1, 8 // world), timeout=600)
+
+
+def parallel_inputs(seed):
+    """(b) and (c)'s inputs as numpy: a compressor's stereo gain curve at
+    BS x 2 x T with its coefficients and a cotangent, noise for the conv, the
+    tv filter and the loss, a response per frame, an IR and an EQ's sections."""
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch.ops import biquad
+    from dasp_tpu_torch.ops.tv_filter import tv_frame_count
+
+    rng = np.random.default_rng(seed + 21)
+    cpu = torch.device("cpu")
+    curves = [compressor_curve(rng, T, cpu) for _ in range(2)]
+    g = torch.cat([c[0] for c in curves], dim=1).numpy()
+    aa, ar = curves[0][1].numpy(), curves[0][2].numpy()
+    n_frames = tv_frame_count(T, 512, 128)
+    secs = []
+    for gain, fc, q, ft in [(4.0, 200.0, 0.7, "low_shelf"), (6.0, 40.0, 2.0, "peaking"),
+                            (-6.0, 1000.0, 2.0, "peaking"), (3.0, 8000.0, 0.7, "high_shelf")]:
+        b, a = biquad(*(torch.full((BS,), v) for v in (gain, fc, q)), SR, ft)
+        secs.append(torch.cat([b, a], dim=-1))
+    return {
+        "g": g, "aa": aa, "ar": ar,
+        "ct": rng.standard_normal(g.shape).astype(np.float32),
+        "x": rng.standard_normal((BS, 2, T)).astype(np.float32),
+        "x2": rng.standard_normal((BS, 2, T)).astype(np.float32),
+        "h": (rng.standard_normal((BS, 2, PARALLEL_CONV_IR)) * 0.01).astype(np.float32),
+        "H": ((rng.standard_normal((BS, n_frames, 1025)) + 1j * rng.standard_normal((BS, n_frames, 1025))) * 0.3)
+        .astype(np.complex64),
+        "sos": torch.stack(secs, dim=1).numpy(),
+    }
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def parallel_functions_rank(rank, sp, inp, dev):
+    """(b) and (c) on one rank of an sp world on ``dev``: the relay's block,
+    its launches, its gradient and its wall-clock marks, then every other
+    sharded function's block."""
+    import torch
+    import torch.distributed as dist
+
+    from dasp_tpu_torch import parallel as P
+
+    dev = torch.device(dev)
+    mesh = P.make_mesh((1, sp), device=dev)
+    spec = P.Sharding(mesh, (None, None, "sp"))
+
+    def blk(a):
+        return spec.block(torch.as_tensor(a)).contiguous().to(dev)
+
+    g, ct = blk(inp["g"]), blk(inp["ct"])
+    aa, ar = (torch.as_tensor(inp[k], device=dev) for k in ("aa", "ar"))
+    out = {}
+    # (b) the relay: one launch of each kernel a rank, forward and backward
+    leaves = [t.clone().requires_grad_() for t in (g, aa, ar)]
+    reset_launch_counts()
+    y = P.sharded_ballistics_smooth(*leaves, mesh)
+    dg, daa, dar = torch.autograd.grad(y, leaves, ct)
+    _sync(dev)
+    out["relay launches"] = launch_counts()
+    out["relay"] = y.detach().cpu().numpy()
+    out["relay grad"] = [t.cpu().numpy() for t in (dg, daa, dar)]
+    marks = []
+    with torch.no_grad():
+        for _ in range(4):  # the first is a warm-up
+            dist.barrier()
+            _sync(dev)
+            t0 = time.time()
+            P.sharded_ballistics_smooth(g, aa, ar, mesh)
+            _sync(dev)
+            marks.append((t0, time.time()))
+    out["relay marks"] = marks[1:]
+    # (c) every other sharded function
+    reset_launch_counts()
+    x, x2 = blk(inp["x"]), blk(inp["x2"])
+    with torch.no_grad():
+        out["conv"] = P.sharded_fft_conv_causal(x, torch.as_tensor(inp["h"], device=dev), mesh).cpu().numpy()
+        out["coupled"] = P.sharded_sosfilt_coupled(torch.as_tensor(inp["sos"], device=dev), x, mesh).cpu().numpy()
+        out["onepole"] = P.sharded_onepole(g, aa[:, None, None], mesh).cpu().numpy()
+        for mode in ("attack_only", "parallel"):
+            out[mode] = P.sharded_ballistics_smooth(g, aa, ar, mesh, mode=mode).cpu().numpy()
+        out["tv filter"] = P.sharded_tv_freq_filter(x, torch.as_tensor(inp["H"], device=dev), 512, 128,
+                                                    mesh).cpu().numpy()
+        out["tv power"] = P.sharded_tv_power(x, 512, 128, 2048, mesh).cpu().numpy()
+        out["loss"] = float(P.sharded_multi_resolution_stft_loss(x, x2, mesh))
+    out["launches"] = launch_counts()
+    return out
+
+
+def style_args(dpsp: bool, dev):
+    from dasp_tpu_torch.examples import style_transfer
+
+    argv = ["--device", str(dev), "--filter-method", "coupled", "--smoother", "exact_pallas",
+            "--batch-size", str(BS), "--steps", "10"]
+    return style_transfer.parse(argv + (["--dp", "--sp", "2"] if dpsp else []))
+
+
+def style_step_grads(mesh, x, rand, noise, dev, per_rank_stats=False):
+    """One style_transfer make_step on this rank (the whole batch without a
+    mesh): loss, gradients, BatchNorm statistics and launches.
+    ``per_rank_stats`` plants a fault: BatchNorm normalises each rank's
+    slice of the batch by its own statistics instead of the dp group's."""
+    import torch
+
+    from dasp_tpu_torch.examples import style_transfer
+    from dasp_tpu_torch.models.tcn import sync_batch_norm
+    from dasp_tpu_torch.parallel import shard_batch
+
+    dev = torch.device(dev)
+    args = style_args(mesh is not None, dev)
+    procs, net = style_transfer.build(args, mesh, dev)
+    if per_rank_stats:
+        sync_batch_norm(net, None)
+    opt, sched = style_transfer.make_optimizer(args, net)
+    step = style_transfer.make_step(args, procs, net, opt, sched, mesh)
+    x, noise = torch.as_tensor(x, device=dev), [torch.as_tensor(n, device=dev) for n in noise]
+    rand = {k: torch.as_tensor(v, device=dev) for k, v in rand.items()}
+    if mesh is not None:
+        x, rand = shard_batch(x, mesh), {k: shard_batch(v, mesh) for k, v in rand.items()}
+        rows = noise[0].shape[0] // mesh.shape["dp"]
+        noise = [n[mesh.index("dp") * rows:(mesh.index("dp") + 1) * rows] for n in noise]
+    reset_launch_counts()
+    loss = float(step(x, rand, noise=tuple(noise)))
+    _sync(dev)
+    grads = {k: p.grad.cpu().numpy() for k, p in net.named_parameters()}
+    stats = {k: v.cpu().numpy() for k, v in net.state_dict().items() if "running" in k}
+    return loss, grads, stats, launch_counts()
+
+
+def dpsp_style_rank(rank, x, rand, noise, dev):
+    """(d) on one rank of the dp 2 x sp 2 world: the step, then the step
+    with the planted fault (per-rank BatchNorm statistics)."""
+    from dasp_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((2, 2), device=dev)
+    loss, grads, stats, launches = style_step_grads(mesh, x, rand, noise, dev)
+    planted = style_step_grads(mesh, x, rand, noise, dev, per_rank_stats=True)[:3]
+    return (loss, grads, stats, launches, planted) if rank == 0 else (loss, None, None, launches, None)
+
+
+def phase_parallel(seed, device, card):
+    """Phase 21 (see the module docstring). Returns the launches of its
+    main-path runs, summed over the ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dasp_tpu_torch.ops import ballistics_kernel as BK
+    from dasp_tpu_torch.ops import fft_conv_causal, sosfilt_coupled
+    from dasp_tpu_torch.ops.iir import ballistics_smooth, onepole_exact
+    from dasp_tpu_torch.ops.tv_filter import tv_freq_filter, tv_stft
+    from dasp_tpu_torch.utils import multi_resolution_stft_loss
+
+    total = {}
+    t_phase = time.perf_counter()
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) style_transfer's main on a one-rank NCCL world, full width
+        log = Path(tmp) / "style"
+        argv = ["--device", device.type, "--dp", "--filter-method", "pallas", "--smoother", "exact_pallas",
+                "--log-dir", str(log)]  # one checkpoint, after the last step's stamp
+        res, out, launches, wall = run_example("style_transfer", argv + ["--steps", str(STYLE_STEPS)])
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        require(f"mesh: dp=1 sp=1 ({backend}" in out, f"style_transfer --dp did not run on {backend}: {out[:300]}")
+        want = {k: v * STYLE_STEPS for k, v in STEP_LAUNCHES.items()}
+        require(launches == want, f"style_transfer --dp: launches {launches}, expected {want}")
+        require(len(res["losses"]) == STYLE_STEPS and all(math.isfinite(v) for v in res["losses"]),
+                f"style_transfer --dp: losses {res['losses']}")
+        require((log / "ckpt.pkl").exists() and (log / "metrics.jsonl").exists(), "style_transfer: files missing")
+        count(launches)
+        # the metrics' wall-clock stamps after step 0 and the last step: the
+        # steps between, without the build and the first step's warm-up
+        stamps = [json.loads(line)["time_s"] for line in open(log / "metrics.jsonl")]
+        step_ms = (stamps[-1] - stamps[0]) / (STYLE_STEPS - 1) * 1e3
+        print(f"[parallel] style_transfer main --dp (one NCCL rank, StyleTransferNet() with its fp32 encoder, bs "
+              f"{BS} x {2 * T}, 65536-tap IR): {STYLE_STEPS} steps, launches a step {STEP_LAUNCHES} (exact), losses "
+              f"{[round(v, 6) for v in res['losses']]}, {wall:.2f} s through main with the build; {step_ms:.1f} ms a "
+              f"step over steps 1-{STYLE_STEPS - 1} (host clock, the metrics' stamps) | {card}")
+        res, out, launches, wall = run_example("style_transfer", argv + ["--steps", str(STYLE_STEPS + 1), "--resume"])
+        require(f"resumed from step {STYLE_STEPS}" in out and res["start"] == STYLE_STEPS and len(res["losses"]) == 1
+                and math.isfinite(res["losses"][0]), f"style_transfer did not resume: {res}")
+        require(launches == STEP_LAUNCHES, f"style_transfer resumed: launches {launches}")
+        count(launches)
+        print(f"[parallel] resumed from step {STYLE_STEPS}: one step, loss {res['losses'][0]:.6f}, launches exact, "
+              f"{wall:.2f} s through main | {card}")
+
+        # (e) mastering's main on one rank
+        steps = 3
+        res, _, launches, wall = run_example("mastering", ["--device", device.type, "--steps", str(steps),
+                                                           "--out-dir", str(Path(tmp) / "mastering")])
+        want = {"ballistics": steps + 2, "ballistics_bwd": steps}  # the target, each step, the final render
+        require(launches == want, f"mastering: launches {launches}, expected {want}")
+        require(all(math.isfinite(v) for v in res["losses"]), f"mastering: losses {res['losses']}")
+        for f in ("master.wav", "target.wav", "input.wav"):
+            require(on_pcm_grid(Path(tmp) / "mastering" / f), f"mastering: {f} missing or off the grid")
+        count(launches)
+        print(f"[parallel] mastering main: {steps} steps, launches {launches} (exact), losses "
+              f"{[round(v, 6) for v in res['losses']]}, {wall:.2f} s through main | {card}")
+
+    # (b), (c) gloo ranks sharing the card
+    inp = parallel_inputs(seed)
+    g, aa, ar, ct = (torch.as_tensor(inp[k], device=device) for k in ("g", "aa", "ar", "ct"))
+    R = BS * 2
+    rows = (g.reshape(R, T), aa.repeat_interleave(2), ar.repeat_interleave(2), torch.zeros(R, device=device))
+    engine = BK._CudaEngine if device.type == "cuda" else BK._PlainEngine
+    y_ref = engine.forward(*rows).reshape(g.shape)
+    fwd_ms = cuda_ms(lambda: engine.forward(*rows), 10)
+    x, x2 = (torch.as_tensor(inp[k], device=device) for k in ("x", "x2"))
+    refs = {
+        "conv": fft_conv_causal(x, torch.as_tensor(inp["h"], device=device)),
+        "coupled": sosfilt_coupled(torch.as_tensor(inp["sos"], device=device), x),
+        "onepole": onepole_exact(g, aa[:, None, None]),
+        "attack_only": ballistics_smooth(g, aa[:, None, None], ar[:, None, None], mode="attack_only"),
+        "parallel": ballistics_smooth(g, aa[:, None, None], ar[:, None, None], mode="parallel"),
+        "tv filter": tv_freq_filter(x, torch.as_tensor(inp["H"], device=device), 512, 128),
+    }
+    X = tv_stft(x, 512, 128, 2048)
+    P_ref = (X.real ** 2 + X.imag ** 2).mean(dim=1).cpu().numpy()
+    refs = {k: v.cpu().numpy() for k, v in refs.items()}
+    loss_ref = float(multi_resolution_stft_loss(x, x2))
+    del X
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ref64 = None
+    for sp in PARALLEL_SP:
+        t0 = time.perf_counter()
+        res = spawn_ranks(sp, parallel_functions_rank, (sp, inp, str(device)))
+        spawn_s = time.perf_counter() - t0
+        got = np.concatenate([r["relay"] for r in res], axis=-1)
+        require(np.array_equal(got, y_ref.cpu().numpy()), f"sp {sp}: the relay differs from the unsharded B-fwd")
+        per_rank = [{k: v for k, v in r["relay launches"].items() if v} for r in res]
+        require(all(p == {"ballistics": 1, "ballistics_bwd": 1} for p in per_rank),
+                f"sp {sp}: relay launches a rank {per_rank}")
+        for p in per_rank:
+            count(p)
+        dg = np.concatenate([r["relay grad"][0] for r in res], axis=-1)
+        daa, dar = (sum(r["relay grad"][i] for r in res) for i in (1, 2))  # replicated: the ranks' parts summed
+        # against the plain reverse loop in float64 on float64 copies of the
+        # whole rows (phase 6's reference): dg of its largest value; daa and
+        # dar (an item's two channels, the ranks' parts summed) of theirs
+        if ref64 is None:
+            ref64 = BK.ballistics_bwd_rows_plain(*(t.cpu().double() for t in (
+                y_ref.reshape(R, T), *rows, torch.as_tensor(inp["ct"]).reshape(R, T))))
+            # daa and dar of an item relative to the sum of |terms| of their
+            # branch over its two rows, as b_bwd_errors scales them
+            y64, g64 = y_ref.reshape(R, T).cpu().double(), rows[0].cpu().double()
+            y_prev = torch.cat([torch.zeros(R, 1, dtype=torch.float64), y64[:, :-1]], dim=1)
+            attack = g64 < y_prev
+            alpha = torch.where(attack, rows[1].cpu().double()[:, None], rows[2].cpu().double()[:, None])
+            terms = (ref64[0] / (1.0 - alpha) * (y_prev - g64)).abs()
+            branch = [(terms * m).sum(-1).reshape(BS, 2).sum(-1) for m in (attack, ~attack)]
+        g_err = float((torch.as_tensor(dg).reshape(R, T).double() - ref64[0]).abs().max() / ref64[0].abs().max())
+        a_err = max(float(((torch.as_tensor(d).double() - r.reshape(BS, 2).sum(-1)).abs()
+                           / torch.clamp(b, min=1e-300)).max())
+                    for d, r, b in ((daa, ref64[1], branch[0]), (dar, ref64[2], branch[1])))
+        require(g_err <= B_BWD_TOL, f"sp {sp}: relay dg {g_err:.3e} from float64")
+        require(a_err <= B_BWD_TOL, f"sp {sp}: relay daa/dar {a_err:.3e} from float64")
+        marks = [r["relay marks"] for r in res]
+        walls = [max(m[i][1] for m in marks) - min(m[i][0] for m in marks) for i in range(len(marks[0]))]
+        print(f"[parallel] sp {sp} (gloo ranks sharing one card: correctness and launches, not multi-card speed): "
+              f"the exact relay bitwise the unsharded B-fwd on {BS} x 2 x {T}; one B-fwd and one B-bwd a rank; "
+              f"dg {g_err:.3e} and daa/dar {a_err:.3e} from float64 (bound {B_BWD_TOL}); relay wall "
+              f"{min(walls) * 1e3:.2f} ms (best of {len(walls)}, host clock, p2p staged through the host) against "
+              f"one unsharded B-fwd {fwd_ms:.3f} ms (CUDA events); the world's spawn and run {spawn_s:.1f} s | {card}")
+        for k, want in refs.items():
+            got = np.concatenate([r[k] for r in res], axis=-1)
+            err_k = float(np.abs(got - want).max())
+            if k == "onepole" or k in ("attack_only", "parallel"):
+                rt, at = PARALLEL_TOL["onepole"]
+                ok = np.all(np.abs(got - want) <= at + rt * np.abs(want))
+            else:
+                ok = err_k <= PARALLEL_TOL[k] * max(1.0, float(np.abs(want).max()))
+            require(ok, f"sp {sp}: {k} {err_k:.3e} from the unsharded port")
+            print(f"[parallel] sp {sp}: {k} {err_k:.3e} from the unsharded port (peak {np.abs(want).max():.3f})")
+        for r in res:
+            p_err = float(np.abs(r["tv power"] - P_ref).max() / P_ref.max())
+            require(p_err <= PARALLEL_TOL["tv power"], f"sp {sp}: tv power {p_err:.3e} of the peak")
+            l_err = abs(r["loss"] - loss_ref) / abs(loss_ref)
+            require(l_err <= PARALLEL_TOL["loss"], f"sp {sp}: loss {r['loss']} against {loss_ref} ({l_err:.3e})")
+        used = [{k: v for k, v in r["launches"].items() if v} for r in res]
+        require(not any(used), f"sp {sp}: (c) launched {used}")
+        print(f"[parallel] sp {sp}: tv power {p_err:.3e} of the peak, loss {l_err:.3e} relative; no kernel launched "
+              f"by (c) | {card}")
+
+    # (d) dp 2 x sp 2 ranks: style_transfer's step at full width
+    from dasp_tpu_torch.examples import style_transfer
+
+    rng = np.random.default_rng(seed + 22)
+    x = (synthetic_batch_np(rng, BS, 2 * T)).astype(np.float32)
+    procs, _ = style_transfer.build(style_args(False, device), None, torch.device("cpu"))
+    rand = {k: v.numpy() for k, v in style_transfer.random_corruption(rng, BS, procs).items()}
+    noise = [rng.standard_normal((BS * 2, 12, IR + 1022)).astype(np.float32) for _ in range(2)]
+    del procs
+    one = style_step_grads(None, x, rand, noise, device)
+    # fp32's own noise in this gradient: the one-rank step on clips moved by
+    # about an ulp (the L1 log-magnitude loss's gradient flips sign in every
+    # bin where the spectra cross, so rounding anywhere moves the encoder
+    # blocks' gradient by percents at full width; tests/test_torch_train.py)
+    nudged = x * (1.0 + 2.0 ** -24 * rng.standard_normal(x.shape)).astype(np.float32)
+    ulp = style_step_grads(None, nudged, rand, noise, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks(4, dpsp_style_rank, (x, rand, noise, str(device)))
+    spawn_s = time.perf_counter() - t0
+    loss, grads, stats, _, planted = res[0]
+    require(all(r[0] == loss for r in res), f"dp x sp: the ranks' losses differ: {[r[0] for r in res]}")
+    per_rank = [{k: v for k, v in r[3].items() if v} for r in res]
+    require(all(p == DPSP_RANK_LAUNCHES for p in per_rank), f"dp x sp: launches a rank {per_rank}")
+    for p in per_rank:
+        count(p)
+
+    def by_part(got):
+        """Each part's gradient difference from the one-rank step, of the
+        part's norm."""
+        out = {}
+        for name in DPSP_PARTS:
+            keys = [k for k in one[1] if k.startswith(name)]
+            diff = sum(float(np.sum((got[k].astype(np.float64) - one[1][k]) ** 2)) for k in keys)
+            out[name] = math.sqrt(diff / sum(float(np.sum(one[1][k].astype(np.float64) ** 2)) for k in keys))
+        return out
+
+    require(all(any(k.startswith(n) for n in DPSP_PARTS) for k in one[1]), "dp x sp: a parameter in no part")
+    floor = by_part(ulp[1])
+    bar = {k: max(DPSP_GRAD_TOL, DPSP_NOISE_FACTOR * v) for k, v in floor.items()}
+
+    def verdict(what, got_loss, got_grads, got_stats):
+        l_rel = abs(got_loss - one[0]) / abs(one[0])
+        part = by_part(got_grads)
+        s_err = max(float(np.abs(got_stats[k] - w).max() / max(1.0, np.abs(w).max())) for k, w in one[2].items())
+        print(f"[parallel] {what} against one rank: loss {got_loss:.6f} / {one[0]:.6f} ({l_rel:.2e} relative), "
+              "gradient difference of each part's norm " + ", ".join(
+                  f"{k} {v:.2e} (bar {bar[k]:.2e})" for k, v in part.items())
+              + f", BatchNorm statistics {s_err:.2e} | {card}")
+        return (l_rel <= DPSP_LOSS_TOL, all(part[k] <= bar[k] for k in part), s_err <= DPSP_STATS_TOL)
+
+    print(f"[parallel] one rank on clips moved by an ulp: gradient difference of each part's norm "
+          + ", ".join(f"{k} {v:.2e}" for k, v in floor.items()) + f" (fp32's noise floor) | {card}")
+    ok = verdict(f"dp 2 x sp 2 gloo ranks sharing the card, style_transfer's step at full width (bs {BS} x {2 * T}, "
+                 f"65536-tap IR, EQ coupled, relay, BatchNorm over dp; launches a rank {per_rank[0]}; spawn and "
+                 f"steps {spawn_s:.1f} s)", loss, grads, stats)
+    require(all(ok), f"dp x sp: the step differs from one rank's (loss, gradient, statistics within: {ok})")
+    # the planted fault: each rank's BatchNorm on its own slice of the batch;
+    # the gradient bar alone must see it
+    caught = verdict("planted fault (per-rank BatchNorm statistics)", *planted)
+    require(not caught[1], "dp x sp: the gradient bar passes per-rank BatchNorm statistics")
+    print(f"[parallel] phase 21 took {time.perf_counter() - t_phase:.1f} s; launches {total} | {card}")
+    return total
+
+
+def time_style_step(seed, device, card):
+    """style_transfer's step split (phase 21's (a) reads only its whole
+    step through main): its data iterator alone (the example's two loader
+    threads, the i16 wire); make_step alone by CUDA events with the
+    example's fp32 encoder and with phase 7's bf16 one, without a mesh and
+    on a one-rank NCCL mesh (BatchNorm's all-gathers, the gradient sum, the
+    sharded loss), 1 warm-up and 5 timed steps each; one checkpoint write."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dasp_tpu_torch.examples import style_transfer as st
+    from dasp_tpu_torch.examples.common import device_batches
+    from dasp_tpu_torch.models import StyleTransferNet
+    from dasp_tpu_torch.parallel import make_mesh
+    from dasp_tpu_torch.utils import save_checkpoint
+
+    args = st.parse(["--device", "cuda", "--filter-method", "pallas", "--smoother", "exact_pallas"])
+    it = device_batches(args)
+    next(it)
+    data_ms = host_ms(lambda: [next(it) for _ in range(5)]) / 5
+    print(f"[style step] data: {data_ms:.1f} ms a batch of {BS} x {2 * T} (two loader threads, synthetic audio, the "
+          f"i16 wire; host clock) | {card}")
+    x = next(it)
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        for what in ("fp32 encoder", "bf16 encoder", "fp32 encoder, one-rank NCCL mesh"):
+            mesh = None
+            if what.endswith("mesh"):
+                dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+                mesh = make_mesh((1, 1), device=device)
+            procs, net = st.build(args, mesh, device)
+            if what.startswith("bf16"):
+                torch.manual_seed(args.seed)
+                net = StyleTransferNet(dtype=torch.bfloat16).to(device).train()
+            opt, sched = st.make_optimizer(args, net)
+            step = st.make_step(args, procs, net, opt, sched, mesh)
+            rand = st.random_corruption(rng, BS, procs, device)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            ms = cuda_ms(lambda: step(x, rand, generator=gen), 5)
+            print(f"[style step] make_step alone, {what}: {ms:.1f} ms (CUDA events) | {card}")
+            if mesh is None and what.startswith("fp32"):
+                state = {"net": net.state_dict(), "opt": opt.state_dict(), "sched": sched.state_dict(), "step": 1}
+                ckpt_ms = host_ms(lambda: save_checkpoint(f"{tmp}/ckpt.pkl", state))
+                print(f"[style step] one checkpoint of the net and Adam's state: {ckpt_ms:.1f} ms (host clock) | {card}")
+            if mesh is not None:
+                dist.destroy_process_group()
+
+
+def synthetic_batch_np(rng, bs, n):
+    from dasp_tpu_torch.utils import synthetic_batch
+
+    return synthetic_batch(rng, bs, n, SR)
+
+
 def time_frac_delay(tree, seed, device, card):
     """C-fwd and C-bwd (without and with dx) of the package imported from
     ``tree`` on phases 8-9's operands made from ``seed``: a call by CUDA
@@ -3081,6 +3567,8 @@ def main() -> int:
                          "time_ballistics)")
     ap.add_argument("--time-frac-delay-of", metavar="DIR",
                     help="only time kernel C's launches of the package in the checkout DIR (see time_frac_delay)")
+    ap.add_argument("--time-style-step", action="store_true",
+                    help="only split style_transfer's step (see time_style_step)")
     args = ap.parse_args()
 
     import torch
@@ -3111,6 +3599,9 @@ def main() -> int:
         timer = time_ballistics if args.time_ballistics_of else time_frac_delay
         timer(tree, args.seed, device, card)
         return 0
+    if args.time_style_step:
+        time_style_step(args.seed, device, card)
+        return 0
     log = _build.build_log()
     if log:  # ptxas -v: per kernel instantiation
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -3140,6 +3631,8 @@ def main() -> int:
     for k, v in phase_streaming(args.seed, device, card).items():
         launches[k] = launches.get(k, 0) + v
     for k, v in phase_files(args.seed, device, card).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in phase_parallel(args.seed, device, card).items():
         launches[k] = launches.get(k, 0) + v
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]

@@ -26,11 +26,13 @@ batched matmuls, cuBLAS on the card, and a scan over blocks),
 ``smoother="block"``, ``"parallel"``, ``"attack_only"`` and ``"exact"``, and
 ``adjoint="ad"`` are plain PyTorch on any device. ``"fsm"``, the default of
 ``parametric_eq`` and ``compressor`` as in the JAX package, is the
-reference's frequency-sampling approximation on ``torch.fft``. The JAX
-package's callable ``filter_method`` and ``smoother`` and its
-``tv_power_fn`` / ``tv_filter_fn`` hooks (the injection points of its
-sequence-sharded filters) are not ported and raise ``ValueError``, as do
-unknown options.
+reference's frequency-sampling approximation on ``torch.fft``. A callable
+``filter_method`` (``fn(sos, x) -> y``) or ``smoother`` (``fn(g,
+alpha_attack, alpha_release) -> y``), the WOLA effects' ``tv_power_fn`` /
+``tv_filter_fn`` and the reverb's ``ir_conv_fn`` plug in another
+evaluation, as in the JAX package: the injection points of the
+sequence-sharded functions of :mod:`dasp_tpu_torch.parallel`, bound to a
+mesh. Unknown options raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -119,10 +121,6 @@ __all__ = [
     "time_stretch",
     "pitch_shift_pv",
 ]
-
-
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP.md Queue 1, {item})")
 
 
 def _param(p, bs: int, dtype, device) -> torch.Tensor:
@@ -264,13 +262,11 @@ def parametric_eq_sos(bs, dtype, sample_rate, *params, device=None) -> torch.Ten
     return torch.stack(sections, dim=1)
 
 
-def _callable_not_ported(what: str) -> ValueError:
-    return _not_ported(f"a callable {what} (the JAX package's hook for its sequence-sharded versions)", "item 11")
-
-
 def _apply_sos(sos, x, filter_method):
     if callable(filter_method):
-        raise _callable_not_ported("filter_method")
+        # a custom cascade fn(sos, x) -> y, e.g. parallel.sharded_sosfilt_coupled
+        # bound to a mesh: the exact recurrence with time split over the ranks
+        return filter_method(sos, x)
     if filter_method == "pallas":
         return sosfilt_pallas(sos, x)
     if filter_method == "exact":
@@ -298,8 +294,8 @@ def _apply_sos_batched(sos_list, x_list, filter_method):
 
 def _apply_first_order(y, b, a, filter_method):
     """A batched first-order IIR (b, a of shape (bs, 2)) over (bs, chs, T)."""
-    if callable(filter_method):
-        raise _callable_not_ported("filter_method")
+    if callable(filter_method):  # a custom cascade fn(sos, x) -> y
+        return filter_method(embed_first_order_sos(b, a)[:, None, :], y)
     if filter_method == "fsm":
         return lfilter_via_fsm(y, b, a)
     if filter_method == "exact":
@@ -411,9 +407,12 @@ def _smooth_gain(g_c, alpha_a, alpha_r, smoother):
     kernel), "block" (attack-only one-pole by the block-state formulation),
     "attack_only" (attack-only one-pole by an associative scan), or
     "parallel" / "exact" (:func:`~dasp_tpu_torch.ops.ballistics_smooth`'s
-    two-scan approximation and its plain loop)."""
+    two-scan approximation and its plain loop). A callable ``smoother(g_c,
+    alpha_attack, alpha_release) -> smoothed`` is the injection point of
+    sequence-sharded smoothing (e.g. ``functools.partial(
+    parallel.sharded_ballistics_smooth, mesh=mesh)``)."""
     if callable(smoother):
-        raise _callable_not_ported("smoother")
+        return smoother(g_c, alpha_a, alpha_r)
     if smoother == "exact_pallas":
         return ballistics_pallas(g_c.contiguous(), alpha_a, alpha_r)
     if smoother in ("pallas", "block", "fsm"):
@@ -1120,6 +1119,7 @@ def noise_shaped_reverberation(
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
     noise_mode: str = "time",
+    ir_conv_fn=None,
 ) -> torch.Tensor:
     """Reverb by filtered-noise shaping: a stereo impulse response is made
     from white noise band-limited into 12 octave bands, shaped by per-band
@@ -1136,6 +1136,11 @@ def noise_shaped_reverberation(
             num_bandpass_taps - 1); band-limited by FFT correlation.
         noise_mode: "time" (draw white noise and band-limit it) or
             "frequency" (draw band-limited noise in the spectral domain).
+        ir_conv_fn: the signal-with-IR convolution, ``ir_conv_fn(x, ir)``
+            with x (bs, 2, T) and ir (bs, 2, num_samples), in place of
+            :func:`~dasp_tpu_torch.ops.fft_conv_causal` (e.g.
+            ``parallel.sharded_fft_conv_causal`` bound to a mesh, with x this
+            rank's time block).
 
     Returns:
         (bs, 2, T).
@@ -1165,7 +1170,7 @@ def noise_shaped_reverberation(
         num_samples=num_samples, num_bandpass_taps=num_bandpass_taps,
         generator=generator, noise=noise, noise_mode=noise_mode, dtype=dtype,
     )
-    y = fft_conv_causal(x, ir)
+    y = (ir_conv_fn or fft_conv_causal)(x, ir)
     return (1.0 - mix) * x + mix * y
 
 
@@ -1755,9 +1760,27 @@ def wow_flutter(
 # ---------------------------------------------------------------------------
 
 
-def _tv_hooks_not_ported(tv_power_fn, tv_filter_fn) -> None:
-    if tv_power_fn is not None or tv_filter_fn is not None:
-        raise _callable_not_ported("tv_power_fn or tv_filter_fn")
+def _tv_analysis(x, frame_size: int, hop: int, n_fft: int, tv_power_fn, tv_filter_fn):
+    """The analysis of a WOLA effect: ``(X, power)`` with X the spectra
+    (bs, chs, n_frames, n_bins) and power their channel mean (bs, n_frames,
+    n_bins). With either hook the effect is split as the JAX package's: the
+    power from ``tv_power_fn(x, frame_size, hop, n_fft)`` (or its own
+    analysis), X None, and the synthesis by :func:`_tv_synthesis`."""
+    if tv_power_fn is None and tv_filter_fn is None:
+        X = tv_stft(x, frame_size, hop, n_fft)
+        return X, _power(X).mean(dim=1)
+    if tv_power_fn is not None:
+        return None, tv_power_fn(x, frame_size, hop, n_fft)
+    return None, _power(tv_stft(x, frame_size, hop, n_fft)).mean(dim=1)
+
+
+def _tv_synthesis(x, X, H, frame_size: int, hop: int, tv_filter_fn):
+    """The per-frame response H applied: to the spectra X where the effect
+    computed them, else by ``tv_filter_fn(x, H, frame_size, hop)`` (or
+    :func:`~dasp_tpu_torch.ops.tv_freq_filter`)."""
+    if X is not None:
+        return tv_istft(X * H[:, None], x.shape[-1], frame_size, hop)
+    return (tv_filter_fn or tv_freq_filter)(x, H, frame_size, hop)
 
 
 def _einsum_float64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
@@ -1868,19 +1891,23 @@ def spectral_gate(
         frame_size / hop: the analysis frames (n_fft = 2 * frame_size).
         eps: floor of the detector.
         smoother: "parallel" (the default) or "exact" frame ballistics.
-        tv_power_fn / tv_filter_fn: the JAX package's sequence-sharded plug
-            points; not ported, they raise.
+        tv_power_fn / tv_filter_fn: plug points of another analysis and
+            synthesis: ``tv_power_fn(x, frame_size, hop, n_fft) -> (bs,
+            n_frames, n_bins)`` channel-mean power and ``tv_filter_fn(x, H,
+            frame_size, hop) -> y`` (e.g. the sequence-sharded
+            ``parallel.sharded_tv_power`` / ``sharded_tv_freq_filter``
+            bound to a mesh). With either, the effect runs split: detection
+            from the power, then one WOLA filter pass.
     """
-    _tv_hooks_not_ported(tv_power_fn, tv_filter_fn)
-    bs, _, seq_len = x.shape
+    bs = x.shape[0]
     dtype, device = x.dtype, x.device
     threshold_db, range_db, attack_ms, release_ms, sharpness_db = _params(
         bs, dtype, device, threshold_db, range_db, attack_ms, release_ms, sharpness_db)
     ln9 = math.log(9.0)
     frame_rate = sample_rate / hop
-    X = tv_stft(x, frame_size, hop, 2 * frame_size)  # (bs, chs, n_frames, n_bins)
+    X, power = _tv_analysis(x, frame_size, hop, 2 * frame_size, tv_power_fn, tv_filter_fn)
     alpha_d = np.exp(-ln9 / (frame_rate * (det_smooth_ms / 1e3))).astype(np.float32)
-    power, _ = _smooth_det_power(_power(X).mean(dim=1), alpha_d, det_smooth_mode)
+    power, _ = _smooth_det_power(power, alpha_d, det_smooth_mode)
     det_db = 10.0 * torch.log10(torch.clamp(power, min=eps * eps))
     if noise_profile_db is None:
         noise_db = torch.quantile(det_db, noise_quantile, dim=1, keepdim=True)
@@ -1890,7 +1917,7 @@ def spectral_gate(
     alpha_r = torch.exp(-ln9 / (frame_rate * (release_ms / 1e3)))
     gain = _spectral_gate_gain(det_db, noise_db, threshold_db, range_db, sharpness_db, alpha_a, alpha_r,
                                smoother, freq_smooth_bins)
-    return tv_istft(X * gain[:, None], seq_len, frame_size, hop).to(dtype)
+    return _tv_synthesis(x, X, gain, frame_size, hop, tv_filter_fn).to(dtype)
 
 
 def spectral_noise_profile(noise: torch.Tensor, frame_size: int = 2048, hop: int = 512,
@@ -1987,10 +2014,10 @@ def dynamic_eq(
         frame_size / hop: the analysis frames.
         eps: floor of the detector.
         smoother: "parallel" (the default) or "exact" frame ballistics.
-        tv_power_fn / tv_filter_fn: not ported, they raise.
+        tv_power_fn / tv_filter_fn: plug points of another analysis and
+            synthesis, as :func:`spectral_gate`'s.
     """
-    _tv_hooks_not_ported(tv_power_fn, tv_filter_fn)
-    bs, _, seq_len = x.shape
+    bs = x.shape[0]
     dtype, device = x.dtype, x.device
     frequency_hz = torch.as_tensor(frequency_hz, dtype=dtype, device=device)
     if frequency_hz.ndim < 2:
@@ -1999,16 +2026,16 @@ def dynamic_eq(
     q_factor, threshold_db, ratio, attack_ms, release_ms = (
         _band_param(p, bs, nb, dtype, device) for p in (q_factor, threshold_db, ratio, attack_ms, release_ms))
     n_bins = 2 * frame_size + 1  # n_fft = 4 * frame_size
-    X = tv_stft(x, frame_size, hop, 4 * frame_size)
+    X, power = _tv_analysis(x, frame_size, hop, 4 * frame_size, tv_power_fn, tv_filter_fn)
     band_w = _dynamic_eq_band_weights(frequency_hz, q_factor, n_bins, sample_rate, frame_size, hop)
     ln9 = math.log(9.0)
     frame_rate = sample_rate / hop
     alpha_a = torch.exp(-ln9 / (frame_rate * (attack_ms / 1e3)))[..., None]
     alpha_r = torch.exp(-ln9 / (frame_rate * (release_ms / 1e3)))[..., None]
-    g = _dynamic_eq_gain(_power(X).mean(dim=1), band_w, threshold_db[..., None], ratio[..., None], knee_db,
+    g = _dynamic_eq_gain(power, band_w, threshold_db[..., None], ratio[..., None], knee_db,
                          max_cut_db, alpha_a, alpha_r, smoother, eps)
     H = _dynamic_eq_response(frequency_hz, q_factor, g, n_bins, sample_rate)
-    return tv_istft(X * H[:, None], seq_len, frame_size, hop).to(dtype)
+    return _tv_synthesis(x, X, H, frame_size, hop, tv_filter_fn).to(dtype)
 
 
 def _dynamic_eq_band_weights(frequency_hz, q_factor, n_bins: int, sample_rate: float, frame_size: int, hop: int):
@@ -2074,9 +2101,10 @@ def phaser(
         mix: dry/wet on [0, 1], (bs,).
         stages: first-order allpass stages. lfo_phase: initial LFO phase.
         frame_size / hop: the analysis frames.
-        tv_filter_fn: not ported, it raises.
+        tv_filter_fn: a WOLA filter ``(x, H, frame_size, hop) -> y`` in
+            place of :func:`~dasp_tpu_torch.ops.tv_freq_filter` (e.g. the
+            sequence-sharded one).
     """
-    _tv_hooks_not_ported(None, tv_filter_fn)
     bs, _, seq_len = x.shape
     dtype, device = x.dtype, x.device
     rate_hz, depth, centre, feedback, mix = (
@@ -2086,7 +2114,7 @@ def phaser(
     lfo = torch.sin(2.0 * np.pi * rate_hz * t + lfo_phase)
     f_break = torch.clamp(centre * 2.0 ** (2.0 * depth * lfo), 1.0, 0.49 * sample_rate)
     H = _phaser_response(f_break, feedback, mix, 2 * frame_size + 1, stages, sample_rate)
-    return tv_freq_filter(x, H, frame_size, hop).to(dtype)
+    return (tv_filter_fn or tv_freq_filter)(x, H, frame_size, hop).to(dtype)
 
 
 def auto_wah(
@@ -2119,9 +2147,9 @@ def auto_wah(
         q_factor: resonance, (bs,). mix: dry/wet on [0, 1], (bs,).
         eps: unused (the JAX package's signature).
         frame_size / hop: the analysis frames.
-        tv_filter_fn: not ported, it raises.
+        tv_filter_fn: a WOLA filter in place of ``tv_freq_filter``, as
+            :func:`phaser`'s.
     """
-    _tv_hooks_not_ported(None, tv_filter_fn)
     bs, _, seq_len = x.shape
     dtype, device = x.dtype, x.device
     sensitivity, attack_ms, release_ms = _params(bs, dtype, device, sensitivity, attack_ms, release_ms)
@@ -2143,7 +2171,7 @@ def auto_wah(
                   q_factor.expand(bs, n_frames).reshape(bs * n_frames), sample_rate, "band_pass")
     H_bp = fft_freqz(b, a, n_fft).reshape(bs, n_frames, n_fft // 2 + 1)
     H = (1.0 - mix[..., None]) + mix[..., None] * H_bp
-    return tv_freq_filter(x, H, frame_size, hop).to(dtype)
+    return (tv_filter_fn or tv_freq_filter)(x, H, frame_size, hop).to(dtype)
 
 
 # ---------------------------------------------------------------------------

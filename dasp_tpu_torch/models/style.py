@@ -26,14 +26,20 @@ def make_style_processors(
     eq_filter_method: str = "fsm",
     compressor_smoother: str = "fsm",
     reverb_noise_mode: str = "frequency",
+    reverb_ir_conv_fn=None,
 ):
     """The four processors of the style-transfer chain. The option strings
     are the JAX package's; ``eq_filter_method="pallas"`` and
-    ``compressor_smoother="exact_pallas"`` select the CUDA kernels."""
+    ``compressor_smoother="exact_pallas"`` select the CUDA kernels. A
+    callable EQ method or smoother, and ``reverb_ir_conv_fn`` (the reverb's
+    signal-with-IR convolution), plug in other evaluations: the
+    sequence-sharded functions of :mod:`dasp_tpu_torch.parallel` bound to a
+    mesh, under which the chain renders this rank's time block."""
     reverb = NoiseShapedReverb(
         sample_rate,
         num_samples=reverb_num_samples,
         noise_mode=reverb_noise_mode,
+        ir_conv_fn=reverb_ir_conv_fn,
     )
     return {
         "equalizer": ParametricEQ(sample_rate, filter_method=eq_filter_method),

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as nnf
 from torch import nn
 
-__all__ = ["BatchNorm", "TCNBlock", "ParameterNetwork", "Encoder", "ParameterProjector"]
+__all__ = ["BatchNorm", "sync_batch_norm", "TCNBlock", "ParameterNetwork", "Encoder", "ParameterProjector"]
 
 # flax nn.BatchNorm's momentum: running = 0.99 * running + 0.01 * batch
 FLAX_MOMENTUM = 0.99
@@ -52,12 +52,49 @@ class BatchNorm(nn.BatchNorm1d):
     dtype, so a bf16 activation stays bf16. Each call in train mode updates
     the statistics once, so a module called twice in one forward updates
     them twice in sequence, as flax does.
+
+    Data parallelism: with ``group`` set (:func:`sync_batch_norm`), train
+    mode normalizes over the whole batch that the group's ranks split, as
+    flax's BatchNorm does over a batch-sharded global array: the sums of x
+    and of its squared deviations from the mean are all-gathered over the
+    group, with autograd.
+    ``torch.nn.SyncBatchNorm`` will not do: it refuses CPU tensors.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1.0 - FLAX_MOMENTUM)
+        # the process group of the ranks that split the batch (data
+        # parallelism), or None; see :func:`sync_batch_norm`
+        self.group = None
+
+    def _forward_synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the whole batch of the group's ranks: the sums of
+        x and the counts all-gathered and summed give the mean, then the
+        sums of the squared deviations from it the biased variance (the
+        all-gathers' transpose sums each rank's part of the gradient). Two
+        passes, not E[x**2] - E[x]**2: the one-pass form's backward cancels
+        in fp32 and moved the encoder's gradient well past fp32's own noise
+        (PERF.md §6)."""
+        from ..parallel.mesh import all_gather
+
+        xf = _at_least_f32(x)
+        C = self.num_features
+        local = torch.cat([xf.sum(dim=(0, 2)), xf.new_full((1,), float(x.shape[0] * x.shape[2]))])
+        total = all_gather(local, self.group).sum(dim=0)
+        mean = total[:C] / total[C]
+        dev = xf - mean[:, None]
+        var = all_gather((dev * dev).sum(dim=(0, 2)), self.group).sum(dim=0) / total[C]
+        with torch.no_grad():
+            m = FLAX_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked.add_(1)
+        scale = self.weight.to(mean.dtype) * torch.rsqrt(var + self.eps)
+        return (dev * scale[:, None] + self.bias.to(mean.dtype)[:, None]).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.group is not None:
+            return self._forward_synced(x)
         if self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(_at_least_f32(x), dim=(0, 2), unbiased=False)
@@ -70,6 +107,16 @@ class BatchNorm(nn.BatchNorm1d):
             x, self.running_mean, self.running_var, self.weight, self.bias,
             training=False, eps=self.eps,
         )
+
+
+def sync_batch_norm(module: nn.Module, group) -> nn.Module:
+    """Set every :class:`BatchNorm` of ``module`` to take its train-mode
+    statistics over the ranks of ``group`` (None: each rank's own batch);
+    returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 class TCNBlock(nn.Module):

@@ -720,10 +720,15 @@ class NoiseShapedReverb(Processor):
         num_samples: int = 65536,
         num_bandpass_taps: int = 1023,
         noise_mode: str = "time",
+        ir_conv_fn=None,
     ):
+        """``ir_conv_fn`` plugs a custom signal-with-IR convolution into the
+        effect (e.g. ``parallel.sharded_fft_conv_causal`` bound to a mesh,
+        for sequence-parallel rendering)."""
         self.sample_rate = sample_rate
         self.process_fn = _with_defaults(F.noise_shaped_reverberation, num_samples=num_samples,
-                                         num_bandpass_taps=num_bandpass_taps, noise_mode=noise_mode)
+                                         num_bandpass_taps=num_bandpass_taps, noise_mode=noise_mode,
+                                         ir_conv_fn=ir_conv_fn)
         ranges = {f"band{i}_gain": (min_band_gain, max_band_gain) for i in range(12)}
         ranges.update({f"band{i}_decay": (min_band_decay, max_band_decay) for i in range(12)})
         ranges["mix"] = (min_mix, max_mix)

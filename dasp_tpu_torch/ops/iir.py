@@ -728,10 +728,12 @@ def _matrix_powers(A: torch.Tensor, n: int) -> torch.Tensor:
     return P[..., :n, :, :]
 
 
-def _sosfilt_coupled_rows(sos_rows, rows, L, zi_rows):
+def _sosfilt_coupled_rows(sos_rows, rows, L, zi_rows, seq_group=None):
     """The coupled-form cascade on (R, T) rows with (R, S, 6) sections and
     an (R, S, 2) initial state, in the inputs' dtype; returns the output
-    (R, T) and the final state (R, S, 2)."""
+    (R, T) and the final state (R, S, 2). With ``seq_group`` the rows are
+    this rank's time block and each section's state is continued across
+    the group's blocks (see :func:`sosfilt_coupled`)."""
     R, T = rows.shape
     S = sos_rows.shape[1]
     xp = nnf.pad(rows, (0, (-T) % L))
@@ -762,6 +764,23 @@ def _sosfilt_coupled_rows(sos_rows, rows, L, zi_rows):
         # the incoming state folds into block 0's increment
         w0 = w[:, 0] + (A_s * z_s[:, None, :]).sum(-1)
         v = lti_affine_scan(A_s, torch.cat([w0[:, None], w[:, 1:]], dim=1))
+        if seq_group is not None:
+            # this block maps an incoming state v_in to v_in's image A_L^(i+1)
+            # v_in plus v at block i: gather every rank's map (M, c) of its
+            # whole block, chain the ranks before this one for the true
+            # incoming state, and correct linearly
+            from ..parallel.mesh import all_gather
+
+            M = _matrix_powers(A_s, nb + 1)[:, 1:]  # (R, nb, 2, 2): A_L^(i+1)
+            Ms = all_gather(M[:, -1], seq_group)  # (n, R, 2, 2)
+            cs = all_gather(v[:, -1], seq_group)  # (n, R, 2)
+            z_ins = [torch.zeros_like(z_s)]
+            for j in range(Ms.shape[0] - 1):
+                z_ins.append(torch.matmul(Ms[j], z_ins[-1][..., None])[..., 0] + cs[j])
+            # every rank keeps every rank's map in its graph: the
+            # all-gathers' transposes are collectives that all ranks join
+            z_s = torch.stack(z_ins)[torch.distributed.get_rank(seq_group)]
+            v = v + torch.matmul(M, z_s[:, None, :, None])[..., 0]
         v_prev = torch.cat([z_s[:, None], v[:, : nb - 1]], dim=1)  # the state entering each block
         y = (c + torch.matmul(v_prev, cA[:, s].transpose(-1, -2))).reshape(R, Tp)
         zf.append(v[:, -1])
@@ -775,6 +794,7 @@ def sosfilt_coupled(
     stabilize: bool = True,
     zi: torch.Tensor | None = None,
     return_zf: bool = False,
+    seq_group=None,
 ):
     """Exact biquad cascade by the block-state formulation on the coupled
     realization (:func:`_coupled_state_space`).
@@ -796,9 +816,17 @@ def sosfilt_coupled(
     operator carries the full impulse response). Pass ``zi`` of shape
     ``x.shape[:-1] + (n_sections, 2)`` (zeros == rest) and set
     ``return_zf`` to carry it across chunks; it is opaque realization
-    state, not ``sosfilt_blockmat``'s. The JAX package's
-    ``seq_axis_name`` (a time axis sharded across devices) belongs to the
-    parallel layer and is not ported.
+    state, not ``sosfilt_blockmat``'s.
+
+    Sequence-sharded: with ``seq_group``, a ``torch.distributed`` process
+    group whose ranks hold consecutive blocks of the time axis (the JAX
+    package's ``seq_axis_name``), x is this rank's block and the recursion
+    is exact across the blocks: each rank runs its chain from rest, one
+    all-gather per section of every rank's affine state map (a 2x2 matrix
+    and a 2-vector per row) gives each rank its true incoming state, and it
+    corrects its outputs linearly. Use it through
+    :func:`~dasp_tpu_torch.parallel.sharded_sosfilt_coupled`; ``zi`` must be
+    None and the block's length a multiple of ``block``.
 
     Args:
         sos: (bs, n_sections, 6) with a0 normalized to 1.
@@ -809,6 +837,8 @@ def sosfilt_coupled(
         zi: initial state, shape x.shape[:-1] + (n_sections, 2).
         return_zf: also return the final state (needs T to be a multiple
             of ``block``).
+        seq_group: the process group over which the time axis is split
+            (None: x is the whole signal).
 
     Returns:
         Filtered signal, same shape as x; with ``return_zf`` a tuple
@@ -824,8 +854,13 @@ def sosfilt_coupled(
             f"return_zf requires T ({T}) to be a multiple of block ({block}); "
             "pick a streaming chunk size that divides by the block length"
         )
+    if seq_group is not None and (zi is not None or T % block):
+        raise ValueError(
+            "sequence-sharded filtering requires zi=None and a per-device "
+            f"length divisible by block ({block}); got T={T}"
+        )
     zi_rows = rows.new_zeros((R, S, 2)) if zi is None else zi.to(WORK_DTYPE).reshape(R, S, 2)
-    y, zf = _sosfilt_coupled_rows(sos_rows, rows, block, zi_rows)
+    y, zf = _sosfilt_coupled_rows(sos_rows, rows, block, zi_rows, seq_group)
     y = y.reshape(x.shape).to(x.dtype)
     if return_zf:
         return y, zf.reshape(*x.shape[:-1], S, 2).to(x.dtype)

@@ -294,38 +294,48 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
     return loss.detach(), param_l1
 
 
-def make_mastering(sample_rate: int = 44100, *, bs: int = 1, device=None):
+def make_mastering(sample_rate: int = 44100, *, bs: int = 1, device=None, lr: float = 2e-2,
+                   tv_power_fn=None, tv_filter_fn=None):
     """The chain, the logits and the optimizer of the mastering step:
     ``examples/mastering.py``'s ``Chain([TransientShaper, DynamicEQ(
     num_bands=3), MultibandCompressor, Exciter, Limiter])`` at their
     defaults (47 normalized parameters), logits ``z`` of shape (bs, 47) at
     zero (every parameter at the middle of its range) on ``device`` (None
-    means the CUDA card, and raises without one), and Adam at 2e-2 with
-    optax.adam's defaults.
+    means the CUDA card, and raises without one), and Adam at ``lr`` with
+    optax.adam's defaults. ``tv_power_fn`` / ``tv_filter_fn`` go to the
+    dynamic EQ (e.g. its sequence-sharded WOLA transforms).
 
     Returns:
         ``(chain, z, opt)``.
     """
-    chain = Chain([TransientShaper(sample_rate), DynamicEQ(sample_rate, num_bands=3),
+    chain = Chain([TransientShaper(sample_rate),
+                   DynamicEQ(sample_rate, num_bands=3, tv_power_fn=tv_power_fn, tv_filter_fn=tv_filter_fn),
                    MultibandCompressor(sample_rate), Exciter(sample_rate), Limiter(sample_rate)])
     z = torch.zeros((bs, chain.num_params), device=_entry_device(device), requires_grad=True)
-    opt = torch.optim.Adam([z], lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
+    opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=1e-8)
     return chain, z, opt
 
 
-def mastering_loss(chain, z: torch.Tensor, mix: torch.Tensor, target: torch.Tensor):
-    """The render of ``mix`` with parameters ``sigmoid(z)`` and its loss,
-    MR-STFT + 10 x MSE against ``target`` (examples/mastering.py).
+def mastering_objective(y: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """examples/mastering.py's loss: MR-STFT + 10 x MSE."""
+    return multi_resolution_stft_loss(y, target) + 10.0 * torch.mean((y - target) ** 2)
+
+
+def mastering_loss(chain, z: torch.Tensor, mix: torch.Tensor, target: torch.Tensor, loss_fn=None):
+    """The render of ``mix`` with parameters ``sigmoid(z)`` and its loss
+    against ``target``: ``loss_fn(y, target)``, by default
+    :func:`mastering_objective`.
 
     Returns:
         ``(loss, y)``: the loss and the render.
     """
     y = chain.process_normalized(mix, torch.sigmoid(z), clip_params=True)
-    return multi_resolution_stft_loss(y, target) + 10.0 * torch.mean((y - target) ** 2), y
+    return (loss_fn or mastering_objective)(y, target), y
 
 
 def mastering_step(chain, z: torch.Tensor, opt: torch.optim.Optimizer, mix: torch.Tensor,
-                   p_true: torch.Tensor, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+                   p_true: torch.Tensor, mark: Optional[Callable[[str], None]] = None,
+                   loss_fn=None, grad_group=None, target: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One mastering step (see the module docstring): the target
     rendered from the hidden normalized parameters ``p_true`` (no
     gradient), the loss of the render from ``z``, backward, Adam. Updates
@@ -336,18 +346,29 @@ def mastering_step(chain, z: torch.Tensor, opt: torch.optim.Optimizer, mix: torc
         p_true: hidden normalized parameters, (bs, chain.num_params).
         mark: called with "target", "forward", "backward" and "optimizer"
             as each part ends (e.g. to record CUDA events).
+        loss_fn: the loss (see :func:`mastering_loss`).
+        grad_group: a process group whose ranks hold ``z`` alike and share
+            the loss out (sequence parallelism): z's gradient is summed
+            over it before the update.
+        target: the target render, when the caller keeps it (then
+            ``p_true`` is not rendered).
 
     Returns:
         The loss, detached.
     """
     mark = mark or (lambda name: None)
-    with torch.no_grad():
-        target = chain.process_normalized(mix, p_true, clip_params=True)
+    if target is None:
+        with torch.no_grad():
+            target = chain.process_normalized(mix, p_true, clip_params=True)
     mark("target")
-    loss, _ = mastering_loss(chain, z, mix, target)
+    loss, _ = mastering_loss(chain, z, mix, target, loss_fn)
     mark("forward")
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if grad_group is not None:
+        from .parallel import sum_gradients
+
+        sum_gradients([z], grad_group)
     mark("backward")
     opt.step()
     mark("optimizer")

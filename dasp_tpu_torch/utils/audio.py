@@ -73,8 +73,15 @@ def _pluck(rng: np.random.Generator, length: int, sr: int) -> np.ndarray:
     burst = rng.standard_normal(period).astype(np.float32)
     out = np.zeros(length, dtype=np.float32)
     out[:period] = burst
-    for n in range(period, length):
-        out[n] = 0.996 * 0.5 * (out[n - period] + out[n - period + 1])
+    # out[n] = 0.498 (out[n - period] + out[n - period + 1]) in float32, a
+    # period of samples at a time: in each block only the last sample reads
+    # the block's own first one (the same bits as the loop over n)
+    c = np.float32(0.996 * 0.5)
+    for s in range(period, length, period):
+        m = min(length - s, period - 1)
+        out[s:s + m] = c * (out[s - period:s - period + m] + out[s - period + 1:s - period + 1 + m])
+        if length - s >= period:
+            out[s + period - 1] = c * (out[s - 1] + out[s])
     return out
 
 

@@ -53,6 +53,19 @@ def _window(fft_size: int, win_length: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(w, dtype=dtype, device=device)
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """(..., T) reflect-padded by ``pad`` on each side of the last axis, as
+    ``jnp.pad(mode="reflect")`` / ``np.pad`` pad it: past T - 1 samples the
+    reflection repeats (period 2 (T - 1)), where ``nnf.pad`` refuses."""
+    lead, T = x.shape[:-1], x.shape[-1]
+    if pad < T:
+        return nnf.pad(x.reshape(-1, 1, T), (pad, pad), mode="reflect").reshape(*lead, T + 2 * pad)
+    period = 2 * (T - 1)
+    idx = torch.arange(-pad, T + pad, device=x.device) % period
+    idx = torch.where(idx >= T, period - idx, idx)
+    return x.index_select(-1, idx)
+
+
 def stft_magnitude(
     x: torch.Tensor,
     fft_size: int,
@@ -68,9 +81,7 @@ def stft_magnitude(
     log safety (see :func:`_mag_from_power`). Returns
     (..., n_frames, fft_size // 2 + 1).
     """
-    pad = fft_size // 2
-    lead, T = x.shape[:-1], x.shape[-1]
-    xp = nnf.pad(x.reshape(-1, 1, T), (pad, pad), mode="reflect").reshape(*lead, T + 2 * pad)
+    xp = reflect_pad(x, fft_size // 2)
     frames = xp.unfold(-1, fft_size, hop_size)  # (..., n_frames, fft_size)
     frames = frames * _window(fft_size, win_length, x.dtype, x.device)
     spec = torch.fft.rfft(frames, fft_size, dim=-1)

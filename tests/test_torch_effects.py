@@ -219,13 +219,20 @@ def test_processor_checks_width_and_range():
     assert torch.equal(y, eq.process_normalized(x, bad.clamp(0, 1)))
 
 
+def _called(*args):
+    raise ValueError("the callable was called")
+
+
 @pytest.mark.parametrize("make,option", [
-    (lambda: P.ParametricEQ(SR, filter_method=lambda sos, x: x), "callable filter_method"),
-    (lambda: P.Compressor(SR, smoother=lambda g, aa, ar: g), "callable smoother"),
+    (lambda: P.ParametricEQ(SR, filter_method=_called), "callable filter_method"),
+    (lambda: P.Compressor(SR, smoother=_called), "callable smoother"),
 ])
 def test_unported_options_raise(make, option):
+    """The callable options (the JAX package's hooks for its sequence-sharded
+    filters, ported with the parallel layer) are called with the effect's
+    operands: the callable's own error comes through."""
     proc = make()
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="the callable was called"):
         proc.process_normalized(torch.randn(1, 1, 256), torch.rand(1, proc.num_params))
 
 

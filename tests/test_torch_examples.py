@@ -16,6 +16,19 @@ uninterrupted run, bitwise. Then each example's ``main`` (and
 ``reverse_eng``'s) runs on the CPU at a small size and writes its files,
 which read back on the 16-bit grid; quickstart at the threshold of
 tests/test_integration.py's ``test_quickstart_recovers_drive``.
+
+style_transfer: its step (``make_step``, Adam with the cosine decay) in
+float64 against a JAX rebuild of examples/style_transfer.py's ``step_fn``
+at its --smoke width, the reverb's noise injected into both, at
+tests/test_torch_train.py's float64 bars (the flax encoder takes its time
+mean in float32): the loss within 1e-8 relative, each gradient within 1e-5
+of its largest value, the updated parameters within 2 lr and the BatchNorm
+statistics within 1e-8. Its ``main`` on 16-bit wav files through the
+native loader and the i16 wire, with a resume that continues at step 3.
+``--sp 2`` (two gloo CPU ranks) trains the one-rank run's numerics: with
+the smoother it maps to (``exact_pallas`` through the relay, ``fsm`` to
+the sharded attack-only one-pole) the first loss within 2e-5; mastering's
+``--sp 2`` likewise.
 """
 
 import importlib.util
@@ -36,8 +49,8 @@ from dasp_tpu import modules as JM
 from dasp_tpu.models import ParameterNetwork as FlaxNet
 from dasp_tpu.utils import multi_resolution_stft_loss as j_mrstft
 from dasp_tpu_torch import modules as M
-from dasp_tpu_torch.examples import (auto_eq, blind_estimation, demo, denoise, mixing_console, quickstart,
-                                     reverse_eng, streaming_demo, virtual_analog)
+from dasp_tpu_torch.examples import (auto_eq, blind_estimation, demo, denoise, mastering, mixing_console,
+                                     quickstart, reverse_eng, streaming_demo, style_transfer, virtual_analog)
 from dasp_tpu_torch.models import parameter_network_from_flax, tcn
 from dasp_tpu_torch.utils import load_wav, save_wav, synthetic_batch
 from test_torch_models import randomized_variables
@@ -266,6 +279,8 @@ MAINS = {
     "virtual_analog": (virtual_analog, ["--smoke", "--steps", "2"], ["metrics.jsonl", "ckpt.pkl"]),
     "virtual_analog_amps": (virtual_analog, ["--smoke", "--steps", "2"],
                             ["jazz-amp/audio/idmt-rock-clean2-jazz-amp-120-pred.wav", "jazz-amp/ckpt.pkl"]),
+    "style_transfer": (style_transfer, ["--smoke", "--steps", "2"], ["metrics.jsonl", "ckpt.pkl"]),
+    "mastering": (mastering, ["--smoke", "--steps", "2"], ["master.wav", "target.wav", "input.wav"]),
 }
 
 
@@ -297,3 +312,188 @@ def test_examples_need_a_card_unless_told():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         denoise.main(["--steps", "1", "--length", "4096"])
+
+
+# ---------------------------------------------------------------------------
+# style_transfer and mastering
+
+
+def test_style_transfer_step_matches_jax_in_float64(monkeypatch):
+    """examples/style_transfer.py's step_fn rebuilt in JAX (float64, the
+    reverb's noise injected, Adam with the cosine decay) against the port's
+    ``make_step`` from the same flax weights, clips and corruption."""
+    from dasp_tpu.models import StyleTransferNet as FlaxStyle
+    from dasp_tpu.models import make_style_processors as j_procs
+    from dasp_tpu_torch.models import style_net_from_flax
+
+    # the flax encoder takes its time mean in float32 whatever the run's
+    # dtype; do the same on the port's side so the rest compares in float64
+    monkeypatch.setattr(tcn, "_at_least_f32", lambda h: h.float().to(torch.promote_types(h.dtype, torch.float32)))
+    args = style_transfer.parse(["--smoke", "--device", "cpu", "--steps", "3"])
+    bs, T, ir = args.batch_size, args.length, 2048
+    nprng = np.random.default_rng(40)
+    x = (synthetic_batch(nprng, bs, T) * 0.5).astype(np.float64)
+    procs_t, net = style_transfer.build(args, device="cpu")
+    rand = {k: v.numpy().astype(np.float64) for k, v in style_transfer.random_corruption(nprng, bs, procs_t).items()}
+    noise = [nprng.standard_normal((bs * 2, 12, ir + 1022)) for _ in range(2)]
+    with x64():
+        fnet = FlaxStyle(embed_dim=32, ch_dim=8, encoder_dilations=(1, 2, 4))
+        variables = randomized_variables(fnet.init(jax.random.PRNGKey(0), jnp.zeros((bs, 1, T // 2)),
+                                                   jnp.zeros((bs, 1, T // 2)), train=False), 1)
+        variables = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+        jp = j_procs(SR, reverb_num_samples=ir)  # "fsm" EQ and smoother, the example's defaults
+        opt = optax.chain(optax.adam(args.lr), optax.scale_by_schedule(optax.cosine_decay_schedule(1.0, args.steps)))
+
+        @jax.jit
+        def step(params, stats, x, rand, n_ref, n_out):  # step_fn, the reverb's noise injected
+            ref = jp["equalizer"].process_normalized(x, rand["eq"], clip_params=True)
+            ref = jp["compressor"].process_normalized(ref, rand["comp"], clip_params=True)
+            ref = jp["reverb"].process_normalized(ref, rand["reverb"], clip_params=True, noise=n_ref)
+            ref = ref / (jnp.max(jnp.abs(ref), axis=-1, keepdims=True) + 1e-9)
+            ref = ref * 10.0 ** (-rand["ref_gain_db"] / 20.0)
+            x = x * 10.0 ** (-rand["in_gain_db"] / 20.0)
+            input_a, _ = jnp.split(x, 2, axis=-1)
+            ref_a, ref_b = jnp.split(ref, 2, axis=-1)
+
+            def loss_fn(params):
+                p, upd = fnet.apply({"params": params, "batch_stats": stats}, input_a,
+                                    jnp.mean(ref_b, axis=1, keepdims=True), train=True, mutable=["batch_stats"])
+                y = jp["equalizer"].process_normalized(input_a, p["equalizer"], clip_params=True)
+                y = jp["compressor"].process_normalized(y, p["compressor"], clip_params=True)
+                y = jp["reverb"].process_normalized(y, p["reverb"], clip_params=True, noise=n_out)
+                y = jp["gain"].process_normalized(y, p["gain"], clip_params=True)
+                return j_mrstft(y, ref_a), upd["batch_stats"]
+
+            (loss, new_stats), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+            updates, _ = opt.update(grads, opt.init(params))
+            return loss, grads, new_stats, optax.apply_updates(params, updates)
+
+        loss_j, grads_j, stats_j, params_j = jax.device_get(step(
+            variables["params"], variables["batch_stats"], x, rand, noise[0], noise[1]))
+    net.load_state_dict(style_net_from_flax(variables, net), strict=True)
+    net.double()
+    opt_t, sched = style_transfer.make_optimizer(args, net)
+    step_t = style_transfer.make_step(args, procs_t, net, opt_t, sched)
+    t = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    loss = float(step_t(t(x), {k: t(v) for k, v in rand.items()}, noise=(t(noise[0]), t(noise[1]))))
+    gj = style_net_from_flax({"params": grads_j}, dtype=torch.float64)
+    worst = max(float((dict(net.named_parameters())[k].grad - g).abs().max() / g.abs().max()) for k, g in gj.items())
+    new = style_net_from_flax({"params": params_j, "batch_stats": stats_j}, dtype=torch.float64)
+    state = net.state_dict()
+    # Adam's first update is -lr g / (|g| + eps) (bias-corrected moments):
+    # on every element from the port's own gradient, and where |g| is at
+    # least 1e4 eps (and 1e-3 of its tensor's largest) it does not depend on
+    # g's last digits, so there the two packages' updates agree far below
+    # lr; a tiny gradient of either sign may move its element by up to 2 lr
+    old = style_net_from_flax(variables, dtype=torch.float64)
+    grads_t = dict(net.named_parameters())
+    adam = max(float((state[k] - (old[k] - args.lr * grads_t[k].grad / (grads_t[k].grad.abs() + 1e-8))).abs().max())
+               for k in gj)
+    big = {k: g.abs() > max(1e-3 * float(g.abs().max()), 1e4 * 1e-8) for k, g in gj.items()}
+    moved = max(float((state[k] - new[k])[m].abs().max()) for k, m in big.items())
+    held = sum(int(m.sum()) for m in big.values()) / sum(m.numel() for m in big.values())
+    stats = max(float((state[k] - v).abs().max()) for k, v in new.items() if "running" in k)
+    rel = abs(loss - float(loss_j)) / float(loss_j)
+    print(f"style_transfer float64: loss {loss:.12f} rel {rel:.3e}, worst gradient {worst:.3e}, "
+          f"parameters after the step {adam:.3e} from Adam's first step, {moved:.3e} from JAX's (on {held:.1%} of "
+          f"them), statistics {stats:.3e}")
+    # tests/test_torch_train.py's float64 bars: the flax encoder's float32
+    # time mean leaks fp32 rounding (about 1e-9 of the loss) into JAX's
+    # float64 step, which the port's float64 mean of the same fp32 values
+    # does not round alike
+    assert rel <= 1e-8
+    assert worst <= 1e-5
+    assert adam <= 1e-6 * args.lr
+    assert moved <= 1e-6 * args.lr
+    assert stats <= 1e-8
+
+
+def test_style_transfer_optimizer_matches_optax():
+    """``make_optimizer`` against the JAX example's optax chain (Adam, its
+    update scaled by cosine_decay_schedule(1.0, steps)) after each step of a
+    3-step run on fixed float64 gradients. The cosine factor goes 1, 0.75,
+    0.25, so a schedule off by one step moves a parameter by lr / 4."""
+    args = style_transfer.parse(["--smoke", "--device", "cpu", "--steps", "3"])
+    rng = np.random.default_rng(41)
+    p0 = {"w": rng.standard_normal((4, 5)), "b": rng.standard_normal(5)}
+    grads = [{k: rng.standard_normal(v.shape) for k, v in p0.items()} for _ in range(args.steps)]
+    net = torch.nn.ParameterDict({k: torch.nn.Parameter(torch.tensor(v)) for k, v in p0.items()})
+    opt_t, sched = style_transfer.make_optimizer(args, net)
+    with x64():
+        opt = optax.chain(optax.adam(args.lr), optax.scale_by_schedule(optax.cosine_decay_schedule(1.0, args.steps)))
+        params, opt_state = p0, opt.init(p0)
+        for i, g in enumerate(grads):
+            updates, opt_state = opt.update(g, opt_state, params)
+            params = optax.apply_updates(params, updates)
+            for k, p in net.items():
+                p.grad = torch.tensor(g[k])
+            opt_t.step()
+            sched.step()
+            err = max(float(np.abs(net[k].detach().numpy() - np.asarray(params[k])).max()) for k in p0)
+            print(f"step {i}: parameters {err:.3e} from optax's")
+            assert err <= 1e-6 * args.lr
+
+
+def test_example_batches_do_not_depend_on_the_threads():
+    """The examples' batch stream is one per seed: batch i comes from the
+    generator seeded (seed, i) and the threads' batches come out in order,
+    so a run draws the same batches whatever its loader threads, and so
+    do the ranks of a multi-rank run."""
+    from dasp_tpu_torch.examples.common import batch_iterator
+
+    args = style_transfer.parse(["--smoke", "--device", "cpu"])
+    streams = []
+    for workers in (1, 3):
+        it = batch_iterator(args, num_workers=workers, prefetch=2)
+        streams.append([next(it) for _ in range(5)])
+        it.close()
+    for a, b in zip(*streams):
+        assert np.array_equal(a, b)
+    assert not np.array_equal(streams[0][0], streams[0][1])
+    want = synthetic_batch(np.random.default_rng((args.seed, 3)), args.batch_size, args.length, args.sample_rate)
+    assert np.array_equal(streams[1][3], want)
+
+
+def test_style_transfer_on_wav_files_and_resume(wav_dir, tmp_path, capsys):
+    """The real-file path: 16-bit wavs through the native loader and the i16
+    wire, metrics and a checkpoint, and a resume that continues at step 3."""
+    out = tmp_path / "st"
+    argv = ["--data-dir", str(wav_dir), "--smoke", "--device", "cpu", "--log-dir", str(out)]
+    res = style_transfer.main(argv + ["--steps", "3"])
+    assert res["start"] == 0 and len(res["losses"]) == 3 and np.all(np.isfinite(res["losses"]))
+    assert "dataset: " in capsys.readouterr().out
+    recs = [json.loads(s) for s in open(out / "metrics.jsonl")]
+    assert [r["step"] for r in recs] == [0, 2] and all(np.isfinite(r["loss"]) for r in recs)
+    assert (out / "ckpt.pkl").exists()
+    res = style_transfer.main(argv + ["--steps", "4", "--resume"])
+    assert "resumed from step 3" in capsys.readouterr().out
+    assert res["start"] == 3 and len(res["losses"]) == 1 and np.isfinite(res["losses"][0])
+
+
+@pytest.mark.parametrize("one_rank,sp_rank", [
+    (["--smoother", "exact_pallas", "--filter-method", "coupled"], ["--smoother", "exact_pallas"]),
+    (["--smoother", "attack_only", "--filter-method", "coupled"], []),  # "fsm" under sp: the sharded one-pole
+])
+def test_style_transfer_sp_trains_the_one_rank_numerics(tmp_path, one_rank, sp_rank):
+    """One step of main with and without --sp 2 (two gloo CPU ranks): under
+    sp the EQ is the sharded coupled cascade and the smoother its sharded
+    equivalent, so at the one-rank run's matching options the loss agrees."""
+    base = ["--smoke", "--steps", "1", "--device", "cpu"]
+    one = style_transfer.main(base + one_rank + ["--log-dir", str(tmp_path / "one")])
+    two = style_transfer.main(base + sp_rank + ["--sp", "2", "--ranks", "2", "--log-dir", str(tmp_path / "sp")])
+    print(f"first loss: one rank {one['losses'][0]:.8f}, --sp 2 {two['losses'][0]:.8f}")
+    assert abs(two["losses"][0] - one["losses"][0]) <= 2e-5 * max(1.0, abs(one["losses"][0]))
+
+
+def test_mastering_sp_matches_one_rank(tmp_path):
+    base = ["--smoke", "--steps", "2", "--device", "cpu"]
+    one = mastering.main(base + ["--out-dir", str(tmp_path / "one")])
+    two = mastering.main(base + ["--sp", "2", "--ranks", "2", "--out-dir", str(tmp_path / "sp")])
+    print(f"losses: one rank {one['losses']}, --sp 2 {two['losses']}")
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=2e-5)
+
+
+def test_sp_needs_the_ranks():
+    """--sp 2 with one rank raises as the JAX package's make_mesh does."""
+    with pytest.raises(ValueError, match="positive axis sizes"):
+        style_transfer.main(["--smoke", "--steps", "1", "--device", "cpu", "--sp", "2"])

@@ -168,12 +168,17 @@ def test_tv_rules_raise():
         TO.tv_stft(x, 512, 128, 1088)
     with pytest.raises(ValueError, match="H has shape"):
         TO.tv_freq_filter(x, torch.zeros(1, 3, 1025, dtype=torch.complex64), 512, 128)
-    for call in (lambda: PF.spectral_gate(x, SR, 6.0, 20.0, 5.0, 50.0, tv_filter_fn=print),
-                 lambda: PF.dynamic_eq(x, SR, 1000.0, 1.0, -20.0, 2.0, 5.0, 50.0, tv_power_fn=print),
-                 lambda: PF.phaser(x, SR, 1.0, 0.5, 500.0, 0.3, 0.5, tv_filter_fn=print),
-                 lambda: PF.auto_wah(x, SR, 5.0, 5.0, 50.0, 200.0, 2000.0, 2.0, 0.5, tv_filter_fn=print),
-                 lambda: P.SpectralGate(SR, tv_power_fn=print).process(x, SR, 6.0, 20.0, 5.0, 50.0)):
-        with pytest.raises(ValueError, match="not ported"):
+    # the tv hooks (ported with the parallel layer) are called: their own
+    # error comes through
+    def hook(*args):
+        raise ValueError("the hook was called")
+
+    for call in (lambda: PF.spectral_gate(x, SR, 6.0, 20.0, 5.0, 50.0, tv_filter_fn=hook),
+                 lambda: PF.dynamic_eq(x, SR, 1000.0, 1.0, -20.0, 2.0, 5.0, 50.0, tv_power_fn=hook),
+                 lambda: PF.phaser(x, SR, 1.0, 0.5, 500.0, 0.3, 0.5, tv_filter_fn=hook),
+                 lambda: PF.auto_wah(x, SR, 5.0, 5.0, 50.0, 200.0, 2000.0, 2.0, 0.5, tv_filter_fn=hook),
+                 lambda: P.SpectralGate(SR, tv_power_fn=hook).process(x, SR, 6.0, 20.0, 5.0, 50.0)):
+        with pytest.raises(ValueError, match="the hook was called"):
             call()
 
 
