@@ -1,0 +1,9 @@
+"""The compressor stage of the live chain (compressor_stream on kernel B),
+host clock with the device drained on both sides, mean a chunk over the
+traced chunks."""
+
+from h100bench.work.roofline import mean
+
+
+def read(run):
+    return mean(run.host_ms.get("comp", []))
