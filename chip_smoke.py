@@ -420,30 +420,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def launch_counts() -> dict:
-    from dasp_tpu_torch.ops.ballistics_kernel import ballistics_pallas
-    from dasp_tpu_torch.ops.frac_delay_kernel import frac_delay_pallas
-    from dasp_tpu_torch.ops.iir_kernel import sosfilt_pallas
+# the kernels' launch counters (dasp_tpu_torch.trace) by the names this
+# script prints
+LAUNCH_COUNTERS = {
+    "sosfilt_cascade": "kernel_a.forward",
+    "sosfilt_cascade_save_all": "kernel_a.save_all",
+    "sosfilt_cascade_adjoint": "kernel_a.adjoint",
+    "ballistics": "kernel_b.forward",
+    "ballistics_bwd": "kernel_b.backward",
+    "frac_delay": "kernel_c.forward",
+    "frac_delay_bwd": "kernel_c.backward",
+}
 
-    return {
-        "sosfilt_cascade": sosfilt_pallas.launches,
-        "sosfilt_cascade_save_all": sosfilt_pallas.save_all_launches,
-        "sosfilt_cascade_adjoint": sosfilt_pallas.adjoint_launches,
-        "ballistics": ballistics_pallas.launches,
-        "ballistics_bwd": ballistics_pallas.bwd_launches,
-        "frac_delay": frac_delay_pallas.launches,
-        "frac_delay_bwd": frac_delay_pallas.bwd_launches,
-    }
+
+def launch_counts() -> dict:
+    from dasp_tpu_torch import trace
+
+    counts = trace.snapshot()["counts"]
+    return {k: counts.get(c, 0) for k, c in LAUNCH_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    from dasp_tpu_torch.ops.ballistics_kernel import ballistics_pallas
-    from dasp_tpu_torch.ops.frac_delay_kernel import frac_delay_pallas
-    from dasp_tpu_torch.ops.iir_kernel import sosfilt_pallas
+    from dasp_tpu_torch import trace
 
-    sosfilt_pallas.launches = sosfilt_pallas.save_all_launches = sosfilt_pallas.adjoint_launches = 0
-    ballistics_pallas.launches = ballistics_pallas.bwd_launches = 0
-    frac_delay_pallas.launches = frac_delay_pallas.bwd_launches = 0
+    trace.reset()
 
 
 def host_ms(fn) -> float:
@@ -1472,28 +1472,20 @@ def phase_blind(seed, device, card):
     require(bool(torch.isfinite(loss)), f"warm-up loss {float(loss)}")
     start = {k: v.detach().clone() for k, v in net.state_dict().items()}
 
-    names = ("target", "forward", "backward", "optimizer")
     reset_launch_counts()
     steps = []
     for i in range(TRAIN_STEPS):
-        marks = [torch.cuda.Event(enable_timing=True)]
-        marks[0].record()
-
-        def mark(_name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append(ev)
-
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
         t0 = time.perf_counter()
-        loss, param_l1 = TR.blind_estimation_step(net, proc, opt, *batches[1 + i], mark=mark)
+        loss, param_l1 = TR.blind_estimation_step(net, proc, opt, *batches[1 + i])
+        ev1.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
-        total = marks[0].elapsed_time(marks[-1])
+        total = ev0.elapsed_time(ev1)
         finite = all(bool(torch.isfinite(p.grad).all()) for p in net.parameters())
         print(f"[blind] step {i}: loss {float(loss):.6f}, param_l1 {float(param_l1):.4f} | "
-              + ", ".join(f"{n} {m:.3f} ms" for n, m in zip(names, ms))
-              + f", step {total:.3f} ms (host {wall:.3f} ms) | {card}")
+              f"step {total:.3f} ms (host {wall:.3f} ms) | {card}")
         require(bool(torch.isfinite(loss)), f"step {i}: loss {float(loss)}")
         require(finite, f"step {i}: non-finite gradients")
         steps.append(total)
@@ -2208,7 +2200,7 @@ def phase_dynamics(seed, device, card):
     def fp32_formulation():
         rows, sos_rows = I._fold_rows(xs, sos_s)
         zi = rows.new_zeros((rows.shape[0], 10, 2))
-        return I._sosfilt_coupled_rows(sos_rows, rows, 128, zi)[0].reshape(xs.shape)
+        return I._sosfilt_coupled_rows(I._coupled_operators(sos_rows, 128), rows, zi)[0].reshape(xs.shape)
 
     outs = {}
     for label, f in (("float64 inside (sosfilt_coupled)", lambda: I.sosfilt_coupled(sos, xs)),

@@ -33,10 +33,16 @@ alpha_attack, alpha_release) -> y``), the WOLA effects' ``tv_power_fn`` /
 evaluation, as in the JAX package: the injection points of the
 sequence-sharded functions of :mod:`dasp_tpu_torch.parallel`, bound to a
 mesh. Unknown options raise ``ValueError``.
+
+Each effect opens a span of its own name round its call (``parametric_eq``,
+``compressor``, ...; :mod:`~dasp_tpu_torch.trace`), as the JAX package
+names its effects' scopes, and ``parametric_eq_sos`` the span ``eq.design``:
+on the timeline of any profiled run they read ``dasp.<name>``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -73,6 +79,7 @@ from .ops.iir import (
 )
 from .ops.iir_kernel import lfilter1_pallas, sosfilt_pallas
 from .ops.tv_filter import tv_analysis_window, tv_frame_centers, tv_frame_count, tv_freq_filter, tv_istft, tv_stft
+from .trace import span
 
 __all__ = [
     "db_to_linear",
@@ -123,6 +130,21 @@ __all__ = [
 ]
 
 
+def _scoped(name: str):
+    """Open the span ``name`` (:func:`~dasp_tpu_torch.trace.span`) round
+    each call of an effect, as the JAX package's named scopes do."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
 def _param(p, bs: int, dtype, device) -> torch.Tensor:
     """Canonicalize a parameter (scalar, (bs,), (bs, 1) or (bs, 1, 1)) to
     shape (bs, 1, 1)."""
@@ -142,6 +164,7 @@ def db_to_linear(db: torch.Tensor) -> torch.Tensor:
     return 10.0 ** (db / 20.0)
 
 
+@_scoped("gain")
 def gain(x: torch.Tensor, sample_rate: int, gain_db) -> torch.Tensor:
     """Apply gain in dB, the same on every channel.
 
@@ -153,6 +176,7 @@ def gain(x: torch.Tensor, sample_rate: int, gain_db) -> torch.Tensor:
     return x * db_to_linear(gain_db)
 
 
+@_scoped("stereo_bus")
 def stereo_bus(x: torch.Tensor, sample_rate: int, send_db) -> torch.Tensor:
     """Sum a stereo multitrack to a stereo bus with per-track send levels.
 
@@ -170,6 +194,7 @@ def stereo_bus(x: torch.Tensor, sample_rate: int, send_db) -> torch.Tensor:
     return torch.sum(x * db_to_linear(send), dim=2)
 
 
+@_scoped("distortion")
 def distortion(x: torch.Tensor, sample_rate: int, drive_db) -> torch.Tensor:
     """Soft-clipping distortion, tanh(x * 10^(drive / 20)).
 
@@ -196,6 +221,7 @@ def distortion(x: torch.Tensor, sample_rate: int, drive_db) -> torch.Tensor:
 _EQ_TYPES = ("low_shelf", "peaking", "peaking", "peaking", "peaking", "high_shelf")
 
 
+@_scoped("parametric_eq")
 def parametric_eq(
     x: torch.Tensor,
     sample_rate: float,
@@ -249,6 +275,7 @@ def parametric_eq(
     return _apply_sos(sos, x, filter_method)
 
 
+@_scoped("eq.design")
 def parametric_eq_sos(bs, dtype, sample_rate, *params, device=None) -> torch.Tensor:
     """The 6-band parametric EQ cascade as a (bs, 6, 6) SOS tensor from the
     same 18 per-band parameters as :func:`parametric_eq`."""
@@ -320,6 +347,7 @@ GRAPHIC_EQ_BANDS = (31.5, 63.0, 125.0, 250.0, 500.0, 1000.0, 2000.0, 4000.0, 800
 _GRAPHIC_EQ_Q = math.sqrt(2.0)
 
 
+@_scoped("graphic_eq")
 def graphic_eq(x: torch.Tensor, sample_rate: float, band_gains_db, filter_method: str = "coupled") -> torch.Tensor:
     """Ten-band octave graphic equalizer (31.5 Hz to 16 kHz): a cascade of
     10 peaking biquads at the octave centres with one-octave bandwidth.
@@ -439,6 +467,7 @@ def _smooth_gain(g_c, alpha_a, alpha_r, smoother):
     )
 
 
+@_scoped("compressor")
 def compressor(
     x: torch.Tensor,
     sample_rate: float,
@@ -484,6 +513,7 @@ def _lookahead(x, lookahead_samples: int):
     return torch.cat([torch.zeros_like(x[..., :la]), x[..., : x.shape[-1] - la]], dim=-1)
 
 
+@_scoped("expander")
 def expander(
     x: torch.Tensor,
     sample_rate: float,
@@ -516,6 +546,7 @@ def expander(
     return x * db_to_linear(g_smooth + makeup_gain_db)
 
 
+@_scoped("sidechain_compressor")
 def sidechain_compressor(
     x: torch.Tensor,
     sample_rate: float,
@@ -580,6 +611,7 @@ def _hold_max(g: torch.Tensor, hold_samples: int) -> torch.Tensor:
     return torch.maximum(pre, suf_shifted)
 
 
+@_scoped("noise_gate")
 def noise_gate(
     x: torch.Tensor,
     sample_rate: float,
@@ -621,6 +653,7 @@ def noise_gate(
     return x * db_to_linear(g_smooth)
 
 
+@_scoped("de_esser")
 def de_esser(
     x: torch.Tensor,
     sample_rate: float,
@@ -716,6 +749,7 @@ def _transient_detectors(
     return att_det, sus_det
 
 
+@_scoped("transient_shaper")
 def transient_shaper(
     x: torch.Tensor,
     sample_rate: float,
@@ -757,6 +791,7 @@ def transient_shaper(
     return (x * db_to_linear(gain_db)).to(dtype)
 
 
+@_scoped("limiter")
 def limiter(
     x: torch.Tensor,
     sample_rate: float,
@@ -812,6 +847,7 @@ def lr4_crossover_sos(crossover_hz, sample_rate, bs, dtype):
     return sos_lp, sos_hp
 
 
+@_scoped("multiband_compressor")
 def multiband_compressor(
     x: torch.Tensor,
     sample_rate: float,
@@ -910,6 +946,7 @@ def _lr4_three_band_split(x, crossover_low_hz, crossover_high_hz, sample_rate, f
 # ---------------------------------------------------------------------------
 
 
+@_scoped("advanced_distortion")
 def advanced_distortion(
     x: torch.Tensor,
     sample_rate: float,
@@ -954,6 +991,7 @@ def exciter_sos(bs, dtype, frequency_hz, sample_rate) -> torch.Tensor:
     return torch.cat([b, a], -1)[:, None, :]
 
 
+@_scoped("exciter")
 def exciter(
     x: torch.Tensor,
     sample_rate: float,
@@ -981,6 +1019,7 @@ def exciter(
     return (x + amount * (torch.tanh(high * g) / g)).to(dtype)
 
 
+@_scoped("bitcrusher")
 def bitcrusher(x: torch.Tensor, sample_rate: float, bit_depth, sample_rate_hz, mix) -> torch.Tensor:
     """Bit-depth and sample-rate reduction with continuous controls.
 
@@ -1023,6 +1062,7 @@ def bitcrusher(x: torch.Tensor, sample_rate: float, bit_depth, sample_rate_hz, m
     return (1.0 - mix) * x + mix * (q / scale)
 
 
+@_scoped("clipper")
 def clipper(x: torch.Tensor, sample_rate: float, threshold_db, hardness) -> torch.Tensor:
     """Clipper with a ceiling ``c = 10^(threshold_db / 20)`` and a hard/soft
     blend: ``y = (1 - h) c tanh(x / c) + h clip(x, -c, c)``.
@@ -1086,6 +1126,7 @@ def spectral_band_noise(
     return torch.fft.irfft(z * F, n, dim=-1)
 
 
+@_scoped("noise_shaped_reverberation")
 def noise_shaped_reverberation(
     x: torch.Tensor,
     sample_rate: float,
@@ -1228,6 +1269,7 @@ def noise_shaped_ir(
 # ---------------------------------------------------------------------------
 
 
+@_scoped("stereo_widener")
 def stereo_widener(x: torch.Tensor, sample_rate: float, width) -> torch.Tensor:
     """Stereo widener by mid/side processing.
 
@@ -1250,6 +1292,7 @@ def stereo_widener(x: torch.Tensor, sample_rate: float, width) -> torch.Tensor:
     return torch.stack(((mid + side) / sqrt2, (mid - side) / sqrt2), dim=-2)
 
 
+@_scoped("stereo_panner")
 def stereo_panner(x: torch.Tensor, sample_rate: float, pan) -> torch.Tensor:
     """Pan mono tracks across the stereo field by the constant-power law.
 
@@ -1283,6 +1326,7 @@ def _host_max(v) -> np.ndarray:
     return np.max(np.asarray(v))
 
 
+@_scoped("modulated_delay")
 def modulated_delay(
     x: torch.Tensor,
     sample_rate: float,
@@ -1507,6 +1551,7 @@ def _pitch_shift_taps(semitones, seq_len: int, W: int):
     return taps
 
 
+@_scoped("pitch_shift")
 def pitch_shift(
     x: torch.Tensor,
     sample_rate: float,
@@ -1579,6 +1624,7 @@ def _time_grid(seq_len: int, sample_rate: float, device) -> torch.Tensor:
     return torch.from_numpy(n / np.float32(sample_rate)).to(device)
 
 
+@_scoped("delay")
 def delay(x: torch.Tensor, sample_rate: float, delay_ms, feedback, mix) -> torch.Tensor:
     """Feedback delay (echo) with a continuous, differentiable delay time:
     the comb ``H(z) = z^-D / (1 - fb z^-D)`` evaluated in closed form on the
@@ -1609,6 +1655,7 @@ def delay(x: torch.Tensor, sample_rate: float, delay_ms, feedback, mix) -> torch
     return torch.fft.irfft(X * h.to(X.dtype), n_fft, dim=-1)[..., :seq_len].to(dtype)
 
 
+@_scoped("ring_modulator")
 def ring_modulator(x: torch.Tensor, sample_rate: float, frequency_hz, mix, lfo_phase: float = 0.0) -> torch.Tensor:
     """Ring modulator: ``y = (1 - mix) x + mix x sin(2 pi f n / fs + phase)``.
 
@@ -1627,6 +1674,7 @@ def ring_modulator(x: torch.Tensor, sample_rate: float, frequency_hz, mix, lfo_p
     return (((1.0 - mix) + mix * carrier) * x).to(x.dtype)
 
 
+@_scoped("tremolo")
 def tremolo(x: torch.Tensor, sample_rate: float, rate_hz, depth, lfo_phase: float = 0.0) -> torch.Tensor:
     """Tremolo: ``y = x (1 - depth (1 + sin(2 pi rate n / fs + phase)) / 2)``,
     unity gain at the LFO's trough, ``1 - depth`` at its peak.
@@ -1643,6 +1691,7 @@ def tremolo(x: torch.Tensor, sample_rate: float, rate_hz, depth, lfo_phase: floa
     return (x * (1.0 - depth * lfo)).to(x.dtype)
 
 
+@_scoped("stereo_imager")
 def stereo_imager(
     x: torch.Tensor,
     sample_rate: float,
@@ -1674,6 +1723,7 @@ def stereo_imager(
     return (y[:bs] + y[bs : 2 * bs] + y[2 * bs :]).to(x.dtype)
 
 
+@_scoped("convolution_reverb")
 def convolution_reverb(x: torch.Tensor, sample_rate: float, mix, ir: torch.Tensor, block: int | None = None) -> torch.Tensor:
     """Convolution reverb with a user impulse response (gradients flow to
     ``x``, ``mix`` and the IR): one batched FFT convolution
@@ -1697,6 +1747,7 @@ def convolution_reverb(x: torch.Tensor, sample_rate: float, mix, ir: torch.Tenso
     return ((1.0 - mix) * x + mix * wet).to(dtype)
 
 
+@_scoped("wow_flutter")
 def wow_flutter(
     x: torch.Tensor,
     sample_rate: float,
@@ -1844,6 +1895,7 @@ def _spectral_gate_gain(
     return (gain, out[1]) if return_yf else gain
 
 
+@_scoped("spectral_gate")
 def spectral_gate(
     x: torch.Tensor,
     sample_rate: float,
@@ -1977,6 +2029,7 @@ def _dynamic_eq_gain(P, band_w, threshold_db, ratio, knee_db, max_cut_db, alpha_
     return ballistics_smooth(g_c, alpha_a, alpha_r, mode=smoother, y0=y0, return_yf=return_yf)
 
 
+@_scoped("dynamic_eq")
 def dynamic_eq(
     x: torch.Tensor,
     sample_rate: float,
@@ -2073,6 +2126,7 @@ def _phaser_response(f_break, feedback, mix, n_bins: int, stages: int, sample_ra
     return (1.0 - mix) + mix * wet
 
 
+@_scoped("phaser")
 def phaser(
     x: torch.Tensor,
     sample_rate: float,
@@ -2117,6 +2171,7 @@ def phaser(
     return (tv_filter_fn or tv_freq_filter)(x, H, frame_size, hop).to(dtype)
 
 
+@_scoped("auto_wah")
 def auto_wah(
     x: torch.Tensor,
     sample_rate: float,
@@ -2216,6 +2271,7 @@ def _pv_synthesize(X, mag, dev, seq_len: int, frame_size: int, hop: int) -> torc
     return tv_istft(torch.complex(mag * torch.cos(phase), mag * torch.sin(phase)), seq_len, frame_size, hop)
 
 
+@_scoped("time_stretch")
 def time_stretch(
     x: torch.Tensor,
     sample_rate: float,
@@ -2326,6 +2382,7 @@ def _warp_resample(s: torch.Tensor, r: torch.Tensor, out_len: int) -> torch.Tens
     return s0 * (1.0 - frac) + s1 * frac
 
 
+@_scoped("pitch_shift_pv")
 def pitch_shift_pv(
     x: torch.Tensor,
     sample_rate: float,

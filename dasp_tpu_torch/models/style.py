@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ..modules import Compressor, Gain, NoiseShapedReverb, ParametricEQ
+from ..trace import span
 from .tcn import Encoder, ParameterProjector
 
 __all__ = ["StyleTransferNet", "apply_style_chain", "make_style_processors", "PROJECTOR_NAMES"]
@@ -73,8 +74,9 @@ class StyleTransferNet(nn.Module):
         )
 
     def forward(self, inp: torch.Tensor, ref: torch.Tensor) -> Dict[str, torch.Tensor]:
-        z = torch.cat([self.encoder(inp), self.encoder(ref)], dim=-1)
-        return {name: proj(z) for name, proj in self.projectors.items()}
+        with span("style.net"):
+            z = torch.cat([self.encoder(inp), self.encoder(ref)], dim=-1)
+            return {name: proj(z) for name, proj in self.projectors.items()}
 
 
 def apply_style_chain(
@@ -88,9 +90,10 @@ def apply_style_chain(
     parameter tensors (clipped into [0, 1]). The reverb draws its noise from
     ``generator`` (the JAX package takes a PRNG key here) unless ``noise``
     is given."""
-    y = processors["equalizer"].process_normalized(x, params["equalizer"], clip_params=True)
-    y = processors["compressor"].process_normalized(y, params["compressor"], clip_params=True)
-    y = processors["reverb"].process_normalized(
-        y, params["reverb"], clip_params=True, generator=generator, noise=noise
-    )
-    return processors["gain"].process_normalized(y, params["gain"], clip_params=True)
+    with span("style.chain"):
+        y = processors["equalizer"].process_normalized(x, params["equalizer"], clip_params=True)
+        y = processors["compressor"].process_normalized(y, params["compressor"], clip_params=True)
+        y = processors["reverb"].process_normalized(
+            y, params["reverb"], clip_params=True, generator=generator, noise=noise
+        )
+        return processors["gain"].process_normalized(y, params["gain"], clip_params=True)

@@ -36,9 +36,10 @@ run to run. The same autograd Function runs on both devices with either
 engine. :func:`ballistics_plain` (autograd through the plain loop) stays
 the independent reference.
 
-Launches are counted per kernel: ``ballistics_pallas.launches`` (forward)
-and ``ballistics_pallas.bwd_launches`` (backward); each is one zero fill of
-the kernel's scratch and one kernel launch on the device.
+Launches are counted per kernel in :mod:`dasp_tpu_torch.trace`:
+``kernel_b.forward`` and ``kernel_b.backward``; each is one zero fill of
+the kernel's scratch and one kernel launch on the device. The same names
+are the spans round each engine call, on either engine.
 ``ballistics_pallas.last_work`` holds, for the last forward launch, the
 work of its verify rounds: an (R, tiles, 3) int64 device tensor of rounds,
 passes and samples walked again per 8192-sample tile.
@@ -53,6 +54,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..trace import count, span
 
 __all__ = [
     "ballistics_pallas",
@@ -135,7 +137,7 @@ class _CudaEngine:
                 R, T, scratch.data_ptr(), stream,
             )
         _build.check(err, "ballistics_f32")
-        ballistics_pallas.launches += 1
+        count("kernel_b.forward")
         ballistics_pallas.last_work = scratch[1 + R * ntiles:].view(R, ntiles, 3)
         return y
 
@@ -161,7 +163,7 @@ class _CudaEngine:
                 R, T, sync.data_ptr(), states.data_ptr(), stream,
             )
         _build.check(err, "ballistics_bwd_f32")
-        ballistics_pallas.bwd_launches += 1
+        count("kernel_b.backward")
         return dg, daa, dar, dy0
 
 
@@ -171,7 +173,8 @@ class _BallisticsKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, g, aa, ar, y0, engine):
-        y = engine.forward(g, aa, ar, y0)
+        with span("kernel_b.forward"):
+            y = engine.forward(g, aa, ar, y0)
         ctx.save_for_backward(y, g, aa, ar, y0)
         ctx.engine = engine
         return y
@@ -180,7 +183,8 @@ class _BallisticsKernel(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, ct):
         y, g, aa, ar, y0 = ctx.saved_tensors
-        grads = ctx.engine.backward(y, g, aa, ar, y0, ct.contiguous())
+        with span("kernel_b.backward"):
+            grads = ctx.engine.backward(y, g, aa, ar, y0, ct.contiguous())
         return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad)), None)
 
 
@@ -253,12 +257,10 @@ def ballistics_pallas(g, alpha_attack, alpha_release, y0=None, return_yf=False):
     if torch.is_grad_enabled() and any(t.requires_grad for t in rows):
         y = _BallisticsKernel.apply(*rows, engine)
     else:
-        y = engine.forward(*rows)
+        with span("kernel_b.forward"):
+            y = engine.forward(*rows)
     return _finish(y, g, return_yf)
 
 
-# kernel launches by kernel, counted in _CudaEngine
-ballistics_pallas.launches = 0
-ballistics_pallas.bwd_launches = 0
 # the last forward launch's rounds, passes and samples walked again per tile
 ballistics_pallas.last_work = None

@@ -42,9 +42,10 @@ computed only when autograd asks for it. On the card dx is summed with
 atomics, in an order that changes from run to run, so it is not bitwise
 reproducible; dd and dg are (a fixed order per output sample, no atomics).
 
-Launches are counted per kernel: ``frac_delay_pallas.launches`` (forward)
-and ``frac_delay_pallas.bwd_launches`` (backward). The name is kept from the
-JAX package.
+Launches are counted per kernel in :mod:`dasp_tpu_torch.trace`:
+``kernel_c.forward`` and ``kernel_c.backward``; the same names are the
+spans round each engine call, on either engine. The name
+``frac_delay_pallas`` is kept from the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..trace import count, span
 
 __all__ = ["frac_delay_pallas", "frac_delay_plain", "frac_delay_bwd_plain"]
 
@@ -164,7 +166,7 @@ class _CudaEngine:
             return wet
         _launch(x_ext.device, _build.library().frac_delay_f32,
                 x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(), wet.data_ptr(), bs, chs, nt, Tp, B, Dm)
-        frac_delay_pallas.launches += 1
+        count("kernel_c.forward")
         return wet
 
     @staticmethod
@@ -180,7 +182,7 @@ class _CudaEngine:
                 x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(), ct.data_ptr(),
                 None if dx is None else dx.data_ptr(), dd.data_ptr(), dg.data_ptr(),
                 bs, chs, nt, Tp, B, Dm)
-        frac_delay_pallas.bwd_launches += 1
+        count("kernel_c.backward")
         return dx, dd, dg
 
 
@@ -190,7 +192,8 @@ class _FracDelay(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_ext, d_stk, g_stk, B, Dm, engine):
-        wet = engine.forward(x_ext, d_stk, g_stk, B, Dm)
+        with span("kernel_c.forward"):
+            wet = engine.forward(x_ext, d_stk, g_stk, B, Dm)
         ctx.save_for_backward(x_ext, d_stk, g_stk)
         ctx.B, ctx.Dm, ctx.engine = B, Dm, engine
         return wet
@@ -200,7 +203,8 @@ class _FracDelay(torch.autograd.Function):
     def backward(ctx, ct):
         x_ext, d_stk, g_stk = ctx.saved_tensors
         need = ctx.needs_input_grad
-        dx, dd, dg = ctx.engine.backward(x_ext, d_stk, g_stk, ct.contiguous(), ctx.B, ctx.Dm, need[0])
+        with span("kernel_c.backward"):
+            dx, dd, dg = ctx.engine.backward(x_ext, d_stk, g_stk, ct.contiguous(), ctx.B, ctx.Dm, need[0])
         return dx, dd if need[1] else None, dg if need[2] else None, None, None, None
 
 
@@ -264,9 +268,5 @@ def frac_delay_pallas(x_ext, d_stk, g_stk, B: int, Dm: int, wraps: bool = True) 
         raise ValueError(f"frac_delay_pallas runs on CPU or CUDA tensors, not {x_ext.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_ext, d_stk, g_stk)):
         return _FracDelay.apply(x_ext, d_stk, g_stk, B, Dm, engine)
-    return engine.forward(x_ext, d_stk, g_stk, B, Dm)
-
-
-# kernel launches by kernel, counted in _CudaEngine
-frac_delay_pallas.launches = 0
-frac_delay_pallas.bwd_launches = 0
+    with span("kernel_c.forward"):
+        return engine.forward(x_ext, d_stk, g_stk, B, Dm)

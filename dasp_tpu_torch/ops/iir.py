@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from ..trace import span
 from .ballistics_kernel import ballistics_rows_plain
 
 __all__ = [
@@ -728,18 +729,11 @@ def _matrix_powers(A: torch.Tensor, n: int) -> torch.Tensor:
     return P[..., :n, :, :]
 
 
-def _sosfilt_coupled_rows(sos_rows, rows, L, zi_rows, seq_group=None):
-    """The coupled-form cascade on (R, T) rows with (R, S, 6) sections and
-    an (R, S, 2) initial state, in the inputs' dtype; returns the output
-    (R, T) and the final state (R, S, 2). With ``seq_group`` the rows are
-    this rank's time block and each section's state is continued across
-    the group's blocks (see :func:`sosfilt_coupled`)."""
-    R, T = rows.shape
-    S = sos_rows.shape[1]
-    xp = nnf.pad(rows, (0, (-T) % L))
-    Tp = xp.shape[-1]
-    nb = Tp // L
-
+def _coupled_operators(sos_rows, L):
+    """What the coupled-form cascade computes from its (R, S, 6) sections
+    alone, for blocks of ``L``: the output injection rows cA (R, S, L, 2),
+    the block transition A_L (R, S, 2, 2), the Toeplitz operators Tt
+    (R, S, L, L) and the state-increment columns q (R, S, L, 2)."""
     A, bvec, cvec, d = _coupled_state_space(sos_rows)  # (R, S, 2, 2), (R, S, 2), (R, S, 2), (R, S)
     P = _matrix_powers(A, L)  # (R, S, L, 2, 2): A^k
     cA = torch.einsum("rsi,rskij->rskj", cvec, P)  # cvec A^k: the output injection rows
@@ -749,10 +743,26 @@ def _sosfilt_coupled_rows(sos_rows, rows, L, zi_rows, seq_group=None):
     # impulse response t[0] = d, t[m] = cvec A^(m-1) bvec, and the Toeplitz
     # operator Tt[j, k] = t[k - j] (k >= j)
     t = torch.cat([d[..., None], (cA[:, :, : L - 1] * bvec[:, :, None, :]).sum(-1)], dim=-1)  # (R, S, L)
-    k = torch.arange(L, device=rows.device)
+    k = torch.arange(L, device=sos_rows.device)
     dd = k[None, :] - k[:, None]
     Tt = t[..., dd.clamp(0, L - 1)] * (dd >= 0).to(t.dtype)  # (R, S, L, L)
     q = torch.flip(Ab, (2,))  # state-increment columns q[j] = A^(L-1-j) bvec
+    return cA, A_L, Tt, q
+
+
+def _sosfilt_coupled_rows(operators, rows, zi_rows, seq_group=None):
+    """The coupled-form cascade on (R, T) rows with the :func:`_coupled_operators`
+    of (R, S, 6) sections and an (R, S, 2) initial state, in the inputs'
+    dtype; returns the output (R, T) and the final state (R, S, 2). With
+    ``seq_group`` the rows are this rank's time block and each section's
+    state is continued across the group's blocks (see
+    :func:`sosfilt_coupled`)."""
+    cA, A_L, Tt, q = operators
+    R, T = rows.shape
+    S, L = Tt.shape[1], Tt.shape[-1]
+    xp = nnf.pad(rows, (0, (-T) % L))
+    Tp = xp.shape[-1]
+    nb = Tp // L
 
     y = xp
     zf = []
@@ -844,10 +854,13 @@ def sosfilt_coupled(
         Filtered signal, same shape as x; with ``return_zf`` a tuple
         ``(y, zf)``.
     """
-    if stabilize:
-        sos = stabilize_sos(sos)
     T = x.shape[-1]
-    rows, sos_rows = _fold_rows(x.to(WORK_DTYPE), sos.to(WORK_DTYPE))
+    x_work = x.to(WORK_DTYPE)
+    with span("iir.coupled.operators"):
+        if stabilize:
+            sos = stabilize_sos(sos)
+        rows, sos_rows = _fold_rows(x_work, sos.to(WORK_DTYPE))
+        operators = _coupled_operators(sos_rows, block)
     R, S = rows.shape[0], sos_rows.shape[1]
     if return_zf and T % block:
         raise ValueError(
@@ -860,7 +873,7 @@ def sosfilt_coupled(
             f"length divisible by block ({block}); got T={T}"
         )
     zi_rows = rows.new_zeros((R, S, 2)) if zi is None else zi.to(WORK_DTYPE).reshape(R, S, 2)
-    y, zf = _sosfilt_coupled_rows(sos_rows, rows, block, zi_rows, seq_group)
+    y, zf = _sosfilt_coupled_rows(operators, rows, zi_rows, seq_group)
     y = y.reshape(x.shape).to(x.dtype)
     if return_zf:
         return y, zf.reshape(*x.shape[:-1], S, 2).to(x.dtype)

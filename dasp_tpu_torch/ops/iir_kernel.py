@@ -32,10 +32,11 @@ the plain block-state version the other, so the CPU tests exercise the
 adjoint formulas themselves. :func:`sosfilt_plain` (autograd through the
 plain forward) stays the independent reference.
 
-Three uses of the kernel are counted apart: ``sosfilt_pallas.launches``
-(forward), ``.save_all_launches`` (forward with residuals) and
-``.adjoint_launches`` (backward), one count per use; each use is one zero
-fill of the scan's scratch and one kernel launch on the device.
+Three uses of the kernel are counted apart in :mod:`dasp_tpu_torch.trace`:
+``kernel_a.forward``, ``kernel_a.save_all`` (forward with residuals) and
+``kernel_a.adjoint`` (backward), one count per use; each use is one zero
+fill of the scan's scratch and one kernel launch on the device. The same
+names are the spans round each use, on either engine.
 
 The names ``sosfilt_pallas`` / ``lfilter1_pallas`` are kept from the JAX
 package so that ``filter_method="pallas"`` and ``smoother="pallas"`` mean
@@ -47,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..trace import count, span
 from .iir import _fold_rows, block_toeplitz_operators, embed_first_order_sos, stabilize_sos
 
 __all__ = [
@@ -188,13 +190,13 @@ class _CudaEngine:
     @staticmethod
     def forward(sos, x):
         y = _launch("forward", sos, x)
-        sosfilt_pallas.launches += 1
+        count("kernel_a.forward")
         return y
 
     @staticmethod
     def save_all(sos, x):
         y = _launch("save_all", sos, x)
-        sosfilt_pallas.save_all_launches += 1
+        count("kernel_a.save_all")
         return y
 
     @staticmethod
@@ -202,7 +204,7 @@ class _CudaEngine:
         # the kernel walks time backward: the flipped-time cascade with its
         # input and outputs left in forward time
         outs = _launch("adjoint", adj_sos, g)
-        sosfilt_pallas.adjoint_launches += 1
+        count("kernel_a.adjoint")
         return outs
 
 
@@ -212,7 +214,8 @@ class _SosfiltKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sos, x, engine):
-        inters = engine.save_all(sos, x)  # (S, R, T)
+        with span("kernel_a.save_all"):
+            inters = engine.save_all(sos, x)  # (S, R, T)
         ctx.save_for_backward(sos, x, inters)
         ctx.engine = engine
         return inters[-1]
@@ -221,7 +224,8 @@ class _SosfiltKernel(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_y):
         sos, x, inters = ctx.saved_tensors
-        dsos, dx = _vjp(sos, x, inters, grad_y.contiguous(), ctx.engine.adjoint)
+        with span("kernel_a.adjoint"):
+            dsos, dx = _vjp(sos, x, inters, grad_y.contiguous(), ctx.engine.adjoint)
         return (
             dsos if ctx.needs_input_grad[0] else None,
             dx if ctx.needs_input_grad[1] else None,
@@ -298,14 +302,9 @@ def sosfilt_pallas(sos: torch.Tensor, x: torch.Tensor, stabilize: bool = True) -
     if torch.is_grad_enabled() and (sos_rows.requires_grad or rows.requires_grad):
         y = _SosfiltKernel.apply(sos_rows, rows, engine)
     else:
-        y = engine.forward(sos_rows, rows)
+        with span("kernel_a.forward"):
+            y = engine.forward(sos_rows, rows)
     return y.reshape(x.shape)
-
-
-# kernel launches by use, counted in _CudaEngine
-sosfilt_pallas.launches = 0
-sosfilt_pallas.save_all_launches = 0
-sosfilt_pallas.adjoint_launches = 0
 
 
 def lfilter1_pallas(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,11 @@ Example (EQ and compressor on the card)::
 
 Memoryless effects (gain, distortion, panner, widener, bus) need no state:
 call the offline functions on each chunk.
+
+Spans (:mod:`~dasp_tpu_torch.trace`, on in a profiled run):
+``stream.chunk`` round each ``StreamChain`` call, ``stream.parametric_eq``,
+``stream.compressor`` and ``stream.reverb`` inside those three streams, so
+that they fall inside any wrapper a caller puts round a step.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from .ops.fft_filter import fft_freqz, next_pow2
 from .ops.fir import fft_conv_causal
 from .ops.iir import ballistics_smooth, embed_first_order_sos, onepole_ba, running_max, sosfilt_blockmat, sosfilt_coupled
 from .ops.tv_filter import tv_analysis_window
+from .trace import span
 from .train import _entry_device
 
 __all__ = [
@@ -127,8 +133,9 @@ def parametric_eq_stream(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming 6-band parametric EQ (the 18 parameters of the offline
     :func:`~dasp_tpu_torch.functional.parametric_eq`)."""
-    sos = F.parametric_eq_sos(x.shape[0], x.dtype, sample_rate, *params, device=x.device)
-    return sosfilt_stream(sos, x, zi=zi, filter_method=filter_method)
+    with span("stream.parametric_eq"):
+        sos = F.parametric_eq_sos(x.shape[0], x.dtype, sample_rate, *params, device=x.device)
+        return sosfilt_stream(sos, x, zi=zi, filter_method=filter_method)
 
 
 def graphic_eq_stream(
@@ -216,8 +223,9 @@ def compressor_stream(
     4)), or ``"parallel"`` / ``"exact"`` (true attack/release ballistics,
     ``"exact"`` on the ballistics kernel; state the ``(ya, ym)`` envelope
     tuple). No lookahead."""
-    return _dynamics_stream(x, sample_rate, threshold_db, ratio, attack_ms, release_ms,
-                            knee_db, makeup_gain_db, eps, zi, "compressor", smoother)
+    with span("stream.compressor"):
+        return _dynamics_stream(x, sample_rate, threshold_db, ratio, attack_ms, release_ms,
+                                knee_db, makeup_gain_db, eps, zi, "compressor", smoother)
 
 
 def expander_stream(
@@ -531,9 +539,10 @@ def reverb_stream(x: torch.Tensor, state: Dict[str, Any]) -> Tuple[torch.Tensor,
     2, T), mono duplicated to stereo as offline, and the state of
     :func:`reverb_stream_init` or the previous step; returns the wet/dry
     stereo chunk (bs, 2, T) and the new state."""
-    if x.shape[1] == 1:
-        x = x.expand(x.shape[0], 2, x.shape[-1])
-    return _conv_stream_step(x, state)
+    with span("stream.reverb"):
+        if x.shape[1] == 1:
+            x = x.expand(x.shape[0], 2, x.shape[-1])
+        return _conv_stream_step(x, state)
 
 
 def _conv_stream_step(x: torch.Tensor, state: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -1268,6 +1277,7 @@ class StreamChain:
     def __call__(self, x: torch.Tensor, state: Optional[Dict[str, Any]] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         state = {} if state is None else state
         new_state: Dict[str, Any] = {}
-        for name, fn in self.steps:
-            x, new_state[name] = fn(x, state.get(name))
+        with span("stream.chunk"):
+            for name, fn in self.steps:
+                x, new_state[name] = fn(x, state.get(name))
         return x, new_state

@@ -62,6 +62,7 @@ import torch
 from .models import ParameterNetwork, StyleTransferNet, apply_style_chain, make_style_processors
 from .functional import spectral_noise_profile
 from .modules import Chain, DynamicEQ, Exciter, Limiter, MultibandCompressor, SpectralGate, TransientShaper
+from .trace import span
 from .utils.loss import multi_resolution_stft_loss, stft_loss
 
 __all__ = [
@@ -192,7 +193,8 @@ def render_loss(net: torch.nn.Module, processors: Dict, input_a: torch.Tensor,
     mode is the caller's (train mode in a training step)."""
     params = net(input_a, ref_b.mean(dim=1, keepdim=True))
     out_a = apply_style_chain(processors, input_a, params, generator=generator, noise=noise)
-    return multi_resolution_stft_loss(out_a, ref_a)
+    with span("train.loss"):
+        return multi_resolution_stft_loss(out_a, ref_a)
 
 
 def train_step(net: torch.nn.Module, processors: Dict, opt: torch.optim.Optimizer,
@@ -213,19 +215,28 @@ def train_step(net: torch.nn.Module, processors: Dict, opt: torch.optim.Optimize
             IR + 1022) white noise, instead of the generator.
         mark: called with "corrupt", "forward", "backward" and "optimizer"
             as each part ends (e.g. to record CUDA events).
+
+    Under a torch profiler the step opens the spans (:mod:`~dasp_tpu_torch.
+    trace`) ``train.step``, and inside it ``train.corrupt``, ``train.loss``
+    (in :func:`render_loss`), ``train.backward`` and ``train.optimizer``, at
+    the edges of the marks.
     """
     mark = mark or (lambda name: None)
     noise_ref, noise_out = (None, None) if noise is None else noise
-    batch = corrupt(processors, x, rand, generator, noise_ref)
-    mark("corrupt")
-    net.train()
-    loss = render_loss(net, processors, *batch, generator=generator, noise=noise_out)
-    mark("forward")
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    mark("backward")
-    opt.step()
-    mark("optimizer")
+    with span("train.step"):
+        with span("train.corrupt"):
+            batch = corrupt(processors, x, rand, generator, noise_ref)
+        mark("corrupt")
+        net.train()
+        loss = render_loss(net, processors, *batch, generator=generator, noise=noise_out)
+        mark("forward")
+        with span("train.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        mark("backward")
+        with span("train.optimizer"):
+            opt.step()
+        mark("optimizer")
     return loss.detach()
 
 
@@ -261,8 +272,7 @@ def blind_estimation_loss(net: torch.nn.Module, processor, x: torch.Tensor, y: t
 
 
 def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Optimizer,
-                          x: torch.Tensor, rand_params: torch.Tensor,
-                          mark: Optional[Callable[[str], None]] = None, auraloss_compat: bool = False):
+                          x: torch.Tensor, rand_params: torch.Tensor, auraloss_compat: bool = False):
     """One blind-estimation step (see the module docstring). Updates the
     net's parameters and BatchNorm statistics and the optimizer's state in
     place.
@@ -271,25 +281,18 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
         x: clean clips, (bs, chs, T).
         rand_params: normalized parameters of the target render,
             (bs, processor.num_params), on (0, 1).
-        mark: called with "target", "forward", "backward" and "optimizer"
-            as each part ends (e.g. to record CUDA events).
         auraloss_compat: the STFT loss with auraloss's semantics.
 
     Returns:
         ``(loss, param_l1)``, detached: the STFT loss and the mean absolute
         error of the predicted normalized parameters (before the update).
     """
-    mark = mark or (lambda name: None)
     with torch.no_grad():
         y = processor.process_normalized(x, rand_params, clip_params=True)
-    mark("target")
     loss, p_hat = blind_estimation_loss(net, processor, x, y, auraloss_compat)
-    mark("forward")
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    mark("backward")
     opt.step()
-    mark("optimizer")
     param_l1 = torch.mean(torch.abs(p_hat.detach() - rand_params))
     return loss.detach(), param_l1
 

@@ -35,6 +35,7 @@ import scipy.signal
 import torch
 
 from dasp_tpu_torch import functional as F
+from dasp_tpu_torch import trace
 from dasp_tpu_torch.modules import ParametricEQ
 from dasp_tpu_torch.ops import ballistics_kernel as BK
 from dasp_tpu_torch.ops import frac_delay_kernel as FK
@@ -45,6 +46,11 @@ SR = 44100
 A_TOL = 2e-3
 
 pytestmark = pytest.mark.gpu
+
+
+def launches(name):
+    """The launch counter ``name`` of the kernels' engines."""
+    return trace.snapshot()["counts"].get(name, 0)
 
 
 @pytest.fixture
@@ -71,9 +77,9 @@ def make_g(bs, T, seed=9):
 def test_sosfilt_kernel_matches_float64_and_plain(cuda, bs, ch, T):
     x = torch.tensor((np.random.default_rng(T).standard_normal((bs, ch, T)) * 0.25).astype(np.float32))
     sos = eq_sos(bs, seed=1)
-    before = IK.sosfilt_pallas.launches
+    before = launches("kernel_a.forward")
     y_k = IK.sosfilt_pallas(sos.to(cuda), x.to(cuda)).cpu()
-    assert IK.sosfilt_pallas.launches == before + 1
+    assert launches("kernel_a.forward") == before + 1
     s64, x64 = sos.double().numpy(), x.double().numpy()
     ref = np.stack([[scipy.signal.sosfilt(s64[b], x64[b, c]) for c in range(ch)] for b in range(bs)])
     err_k = np.abs(y_k.double().numpy() - ref).max()
@@ -155,11 +161,11 @@ def test_ballistics_kernel_bitwise_plain(cuda, with_y0):
     g = make_g(8, 5000)
     aa, ar = torch.linspace(0.5, 0.95, 8), torch.linspace(0.9, 0.999, 8)
     y0 = -torch.rand(8, 1) if with_y0 else None
-    before = BK.ballistics_pallas.launches
+    before = launches("kernel_b.forward")
     y_k, (yf, _) = BK.ballistics_pallas(
         g.to(cuda), aa.to(cuda), ar.to(cuda), y0=None if y0 is None else y0.to(cuda), return_yf=True
     )
-    assert BK.ballistics_pallas.launches == before + 1
+    assert launches("kernel_b.forward") == before + 1
     assert torch.equal(y_k.cpu(), BK.ballistics_plain(g, aa, ar, y0=y0))
     assert torch.equal(yf.cpu(), y_k.cpu()[..., -1])
 
@@ -191,9 +197,8 @@ def test_kernel_wrappers_check_inputs(cuda):
 
 
 def counts():
-    return (IK.sosfilt_pallas.launches, IK.sosfilt_pallas.save_all_launches,
-            IK.sosfilt_pallas.adjoint_launches, BK.ballistics_pallas.launches,
-            BK.ballistics_pallas.bwd_launches)
+    return tuple(launches(n) for n in ("kernel_a.forward", "kernel_a.save_all", "kernel_a.adjoint",
+                                       "kernel_b.forward", "kernel_b.backward"))
 
 
 def one_pole_sos(bs):
@@ -401,9 +406,9 @@ def test_render_runs_through_both_kernels(cuda):
     x = torch.randn(2, 1, 8192, device=cuda) * 0.1
     with torch.inference_mode():
         params = net(x, x.flip(-1))
-        a0, b0 = IK.sosfilt_pallas.launches, BK.ballistics_pallas.launches
+        a0, b0 = launches("kernel_a.forward"), launches("kernel_b.forward")
         y_k = apply_style_chain(procs, x, params, generator=torch.Generator(device=cuda).manual_seed(1))
-        assert (IK.sosfilt_pallas.launches - a0, BK.ballistics_pallas.launches - b0) == (1, 1)
+        assert (launches("kernel_a.forward") - a0, launches("kernel_b.forward") - b0) == (1, 1)
         y_p = apply_style_chain(plain, x, params, generator=torch.Generator(device=cuda).manual_seed(1))
     assert y_k.shape == (2, 2, 8192) and bool(torch.isfinite(y_k).all())
     assert float((y_k - y_p).abs().max()) <= 2 * A_TOL * float(y_p.abs().max())
@@ -433,7 +438,7 @@ def frac_delay_case(nt, chs, T, B, Dm, seed=0, edge=False, drawn=False):
 
 
 def c_counts():
-    return FK.frac_delay_pallas.launches, FK.frac_delay_pallas.bwd_launches
+    return launches("kernel_c.forward"), launches("kernel_c.backward")
 
 
 @pytest.mark.parametrize("nt,chs,T,B,Dm,edge", [
