@@ -279,6 +279,12 @@ def parametric_eq(
 def parametric_eq_sos(bs, dtype, sample_rate, *params, device=None) -> torch.Tensor:
     """The 6-band parametric EQ cascade as a (bs, 6, 6) SOS tensor from the
     same 18 per-band parameters as :func:`parametric_eq`."""
+    return _parametric_eq_sections(bs, dtype, sample_rate, *params, device=device)
+
+
+def _parametric_eq_sections(bs, dtype, sample_rate, *params, device=None) -> torch.Tensor:
+    """:func:`parametric_eq_sos` outside its span (for a caller that opens
+    ``eq.design`` round more than the design)."""
     if len(params) != 18:
         raise ValueError(f"expected 18 EQ params, got {len(params)}")
     sections = []

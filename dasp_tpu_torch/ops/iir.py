@@ -58,6 +58,7 @@ __all__ = [
     "lfilter1_exact",
     "peak_decay",
     "sosfilt_coupled",
+    "coupled_operators",
     "stabilize_sos",
     "embed_first_order_sos",
     "onepole_ba",
@@ -284,15 +285,17 @@ def lti_affine_scan(A: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 WORK_DTYPE = torch.float64
 
 
+def _per_row(coeffs: torch.Tensor, shape) -> torch.Tensor:
+    """The per-item ``coeffs`` repeated for each of the ``mid`` rows of an
+    item of a signal of ``shape`` (bs, ..., T)."""
+    mid = math.prod(shape[1:-1])
+    return coeffs.repeat_interleave(mid, dim=0) if mid > 1 else coeffs
+
+
 def _fold_rows(x: torch.Tensor, coeffs: torch.Tensor):
     """x (bs, ..., T) as (bs * mid, T) rows, with the per-item ``coeffs``
     repeated for each of the ``mid`` rows of an item."""
-    bs, T = x.shape[0], x.shape[-1]
-    mid = math.prod(x.shape[1:-1])
-    rows = x.reshape(bs * mid, T)
-    if mid > 1:
-        coeffs = coeffs.repeat_interleave(mid, dim=0)
-    return rows, coeffs
+    return x.reshape(math.prod(x.shape[:-1]), x.shape[-1]), _per_row(coeffs, x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -797,14 +800,28 @@ def _sosfilt_coupled_rows(operators, rows, zi_rows, seq_group=None):
     return y[:, :T], torch.stack(zf, dim=1)
 
 
+def coupled_operators(sos: torch.Tensor, x_shape, block: int = 128, stabilize: bool = True):
+    """What :func:`sosfilt_coupled` builds from the sections alone for a
+    signal of shape ``x_shape``: the (R, S, 6) float64 sections (stabilized
+    if ``stabilize``, each item's repeated for its rows) and their
+    :func:`_coupled_operators` for blocks of ``block``. Pass the pair as
+    ``sosfilt_coupled(operators=)`` to filter signals of the same leading
+    shape without building it again."""
+    if stabilize:
+        sos = stabilize_sos(sos)
+    sos_rows = _per_row(sos.to(WORK_DTYPE), x_shape)
+    return sos_rows, _coupled_operators(sos_rows, block)
+
+
 def sosfilt_coupled(
-    sos: torch.Tensor,
+    sos: torch.Tensor | None,
     x: torch.Tensor,
     block: int = 128,
     stabilize: bool = True,
     zi: torch.Tensor | None = None,
     return_zf: bool = False,
     seq_group=None,
+    operators=None,
 ):
     """Exact biquad cascade by the block-state formulation on the coupled
     realization (:func:`_coupled_state_space`).
@@ -849,6 +866,9 @@ def sosfilt_coupled(
             of ``block``).
         seq_group: the process group over which the time axis is split
             (None: x is the whole signal).
+        operators: the pair :func:`coupled_operators` built from ``sos``
+            for x's leading shape and ``block``, used in place of building
+            it (``sos`` and ``stabilize`` are then not read).
 
     Returns:
         Filtered signal, same shape as x; with ``return_zf`` a tuple
@@ -856,12 +876,17 @@ def sosfilt_coupled(
     """
     T = x.shape[-1]
     x_work = x.to(WORK_DTYPE)
-    with span("iir.coupled.operators"):
-        if stabilize:
-            sos = stabilize_sos(sos)
-        rows, sos_rows = _fold_rows(x_work, sos.to(WORK_DTYPE))
-        operators = _coupled_operators(sos_rows, block)
-    R, S = rows.shape[0], sos_rows.shape[1]
+    if operators is None:
+        with span("iir.coupled.operators"):
+            operators = coupled_operators(sos, x.shape, block, stabilize)
+    sos_rows, operators = operators
+    R, S = sos_rows.shape[0], sos_rows.shape[1]
+    if R != math.prod(x.shape[:-1]) or operators[2].shape[-1] != block:
+        raise ValueError(
+            f"operators built for {R} rows and blocks of {operators[2].shape[-1]}; "
+            f"x has {math.prod(x.shape[:-1])} rows and block is {block}"
+        )
+    rows = x_work.reshape(R, T)
     if return_zf and T % block:
         raise ValueError(
             f"return_zf requires T ({T}) to be a multiple of block ({block}); "

@@ -35,15 +35,28 @@ Example (EQ and compressor on the card)::
 Memoryless effects (gain, distortion, panner, widener, bus) need no state:
 call the offline functions on each chunk.
 
+The parametric EQ stream keeps its designed sections and coupled
+operators across chunks while its parameters are unchanged (a small memo
+held by this module, :class:`_OperatorMemo`): a chunk whose 18 parameters,
+sample rate and leading shape, dtype and device match a kept entry bit for
+bit filters with that entry, bitwise what a rebuild gives. Only the inputs
+decide: with grad mode on and a parameter that requires grad the memo is
+bypassed, so that no operator ties two chunks' graphs together.
+
 Spans (:mod:`~dasp_tpu_torch.trace`, on in a profiled run):
 ``stream.chunk`` round each ``StreamChain`` call, ``stream.parametric_eq``,
 ``stream.compressor`` and ``stream.reverb`` inside those three streams, so
-that they fall inside any wrapper a caller puts round a step.
+that they fall inside any wrapper a caller puts round a step; inside
+``stream.parametric_eq``, ``eq.design`` round getting the sections and
+``iir.coupled.operators`` round getting the operators, once a call whether
+the memo keeps them or they are built. Counters: ``stream.eq_operators.hit``
+or ``stream.eq_operators.miss`` once on each call that consults the memo.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -55,9 +68,17 @@ from .ops.ballistics_kernel import ballistics_pallas
 from .ops.biquad import biquad
 from .ops.fft_filter import fft_freqz, next_pow2
 from .ops.fir import fft_conv_causal
-from .ops.iir import ballistics_smooth, embed_first_order_sos, onepole_ba, running_max, sosfilt_blockmat, sosfilt_coupled
+from .ops.iir import (
+    ballistics_smooth,
+    coupled_operators,
+    embed_first_order_sos,
+    onepole_ba,
+    running_max,
+    sosfilt_blockmat,
+    sosfilt_coupled,
+)
 from .ops.tv_filter import tv_analysis_window
-from .trace import span
+from .trace import count, span
 from .train import _entry_device
 
 __all__ = [
@@ -124,6 +145,100 @@ def sosfilt_stream(
     raise ValueError(f"Unknown filter_method: {filter_method!r}. Expected 'coupled' or 'block'.")
 
 
+# the integer dtype of each element size, to compare floats bit for bit
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+class _OperatorMemo:
+    """Designed sections and coupled operators kept across chunks.
+
+    An entry is found by its host key (what it was built from that the host
+    holds: sample rate, the signal's leading shape, dtype and device, the
+    block, the Python number parameters' bits, the tensor parameters'
+    shapes) and then by a copy of the tensor parameters' bits as the design
+    reads them (in the signal's dtype, on its device), compared with every
+    candidate in one device-to-host read. A copy and not the tensors
+    themselves: a write in place, also one through ``.data`` (which leaves
+    the version counter alone), must miss. Parameters that hold a NaN are
+    never kept. At most ``size`` entries; the least recently used goes
+    first. Lookups and stores from several threads at once are safe (a race
+    may keep one entry twice, within the bound)."""
+
+    def __init__(self, size: int = 4):
+        self.size = size
+        self._entries: list = []  # [host key, bits or None, value], most recently used last
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def lookup(self, key, values: Optional[torch.Tensor]):
+        """(the kept value or None, whether ``values`` hold a NaN)."""
+        with self._lock:
+            cands = [e for e in self._entries if e[0] == key]
+        flags = [False] * (len(cands) + 1)  # each candidate's mismatch, then NaN
+        if values is not None and values.numel():
+            bits = values.view(_BITS[values.element_size()])
+            flags = torch.stack([(bits != e[1]).any() for e in cands] + [torch.isnan(values).any()]).tolist()
+        hit = next((e for e, f in zip(cands, flags) if not f), None)
+        if hit is None:
+            return None, flags[-1]
+        with self._lock:
+            for i, e in enumerate(self._entries):
+                if e is hit:
+                    self._entries.append(self._entries.pop(i))
+                    break
+        return hit[2], False
+
+    def store(self, key, values: Optional[torch.Tensor], value) -> None:
+        """Keep ``value`` under ``key`` and ``values``, a tensor of its own
+        (:func:`_eq_memo_key` makes it with ``torch.cat``)."""
+        bits = None if values is None else values.view(_BITS[values.element_size()])
+        with self._lock:
+            self._entries.append([key, bits, value])
+            del self._entries[: -self.size]
+
+
+_EQ_MEMO = _OperatorMemo()
+# the intra-block length of the EQ's coupled cascade (sosfilt_stream's)
+_EQ_BLOCK = 128
+
+
+def _eq_memo_key(x: torch.Tensor, sample_rate, params):
+    """(host key, the tensor parameters flat as the design reads them or
+    None, a Python number is NaN) of a call of :func:`parametric_eq_stream`;
+    None where the memo is bypassed: a sample rate that is not a Python
+    number, a parameter that is neither a Python number nor a tensor, or
+    grad mode with a parameter that requires grad (so the flat copy records
+    no graph)."""
+
+    def number(v):  # a Python number's type and bits
+        return type(v), v.hex() if isinstance(v, float) else v
+
+    if not isinstance(sample_rate, (int, float)):
+        return None
+    if torch.is_grad_enabled() and any(isinstance(p, torch.Tensor) and p.requires_grad for p in params):
+        return None
+    key = [x.shape[:-1], x.dtype, x.device, _EQ_BLOCK, torch.is_inference_mode_enabled(), number(sample_rate)]
+    tensors, nan = [], math.isnan(sample_rate)
+    for p in params:
+        if isinstance(p, torch.Tensor):
+            key.append(p.shape)
+            if p.dtype != x.dtype or p.device != x.device:
+                p = p.to(x.device, x.dtype)  # the value functional._param gives the design
+            tensors.append(p if p.dim() == 1 else p.reshape(-1))
+        elif isinstance(p, (int, float)):
+            key.append(number(p))
+            nan = nan or math.isnan(p)
+        else:
+            return None
+    return tuple(key), torch.cat(tensors) if tensors else None, nan
+
+
 def parametric_eq_stream(
     x: torch.Tensor,
     sample_rate: float,
@@ -132,10 +247,27 @@ def parametric_eq_stream(
     filter_method: str = "coupled",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming 6-band parametric EQ (the 18 parameters of the offline
-    :func:`~dasp_tpu_torch.functional.parametric_eq`)."""
+    :func:`~dasp_tpu_torch.functional.parametric_eq`). With the default
+    coupled realization the sections and operators come from the module's
+    memo while the parameters are unchanged (see the module docstring)."""
     with span("stream.parametric_eq"):
-        sos = F.parametric_eq_sos(x.shape[0], x.dtype, sample_rate, *params, device=x.device)
-        return sosfilt_stream(sos, x, zi=zi, filter_method=filter_method)
+        with span("eq.design"):
+            memo = _eq_memo_key(x, sample_rate, params) if filter_method == "coupled" else None
+            operators = None
+            if memo is not None:
+                key, values, nan = memo
+                operators, values_nan = _EQ_MEMO.lookup(key, values)
+            if operators is None:
+                sos = F._parametric_eq_sections(x.shape[0], x.dtype, sample_rate, *params, device=x.device)
+        if memo is None:
+            return sosfilt_stream(sos, x, zi=zi, filter_method=filter_method)
+        count("stream.eq_operators." + ("miss" if operators is None else "hit"))
+        with span("iir.coupled.operators"):
+            if operators is None:
+                operators = coupled_operators(sos, x.shape, _EQ_BLOCK)
+                if not (nan or values_nan):
+                    _EQ_MEMO.store(key, values, operators)
+        return sosfilt_coupled(None, x, block=_EQ_BLOCK, zi=zi, return_zf=True, operators=operators)
 
 
 def graphic_eq_stream(

@@ -551,3 +551,46 @@ def test_blind_estimation_step_through_kernel_c(cuda, name):
     net_cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
     loss_cpu, _ = TR.blind_estimation_step(net_cpu, proc, opt_cpu, x, rp)
     assert abs(float(loss) - float(loss_cpu)) <= 2e-3 * float(loss_cpu)
+
+
+def test_stream_eq_memo_hit_on_the_card(cuda):
+    """The parametric EQ stream on card tensors (8 stereo streams, chunks of
+    512, the classic chain's values): a chunk that finds its operators in
+    the memo makes at most one device-to-host copy (the parameters' bits
+    against the kept copy), runs none of the design's (``aten::sin``,
+    ``aten::cos``) or the operators' (``aten::einsum``) ops, and its output
+    and state are bitwise those of a rebuild."""
+    from dasp_tpu_torch import streaming as S
+
+    bs, chunk = 8, 512
+    values = (2.0, 200.0, 0.7, 3.0, 400.0, 1.0, -2.0, 3000.0, 2.0, 1.0, 9000.0, 1.0, 2.0, 13000.0, 1.0, -3.0,
+              8000.0, 0.7)
+    eq = [torch.full((bs,), v, device=cuda) for v in values]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = 0.25 * torch.randn((bs, 2, 3 * chunk), generator=g, device=cuda)
+    c0, c1, c2 = (c.contiguous() for c in x.split(chunk, dim=-1))
+
+    def rebuild(c, zi):
+        sos = F.parametric_eq_sos(bs, c.dtype, SR, *eq, device=cuda)
+        return S.sosfilt_stream(sos, c, zi=zi)
+
+    S._EQ_MEMO.clear()
+    trace.reset()
+    _, zi = S.parametric_eq_stream(c0, SR, *eq)
+    _, zi = S.parametric_eq_stream(c1, SR, *eq, zi=zi)  # warm: the hit path's first run
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        y, zf = S.parametric_eq_stream(c2, SR, *eq, zi=zi)
+        torch.cuda.synchronize()
+    counts = trace.snapshot()["counts"]
+    assert (counts.get("stream.eq_operators.hit"), counts.get("stream.eq_operators.miss")) == (2, 1)
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("gemm" in e.name.lower() or "kernel" in e.name.lower() for e in device), "no device events traced"
+    assert sum("DtoH" in e.name for e in device) <= 1
+    names = {e.name for e in events}
+    assert not names & {"aten::sin", "aten::cos", "aten::einsum"}
+    y_r, zf_r = rebuild(c2, zi)
+    assert torch.equal(y, y_r) and torch.equal(zf, zf_r)
+    S._EQ_MEMO.clear()
