@@ -206,6 +206,14 @@ its serving path at full width, and its examples on wav files:
            rank's own statistics, must break that gradient bar. 2 B-fwd
            and 1 B-bwd a rank. (e)
            mastering's main on one rank, exact B launches
+  phase 22 the coupled cascade's stream step kernel (D) at the two serving
+           shapes (1 x 2 x 512 and 8 x 2 x 512, the classic chain's 6 EQ
+           sections, a carried state): against its plain float64 loop and
+           the block-state loop it replaces within one fp32 ulp of the
+           peak; the kernel alone (profiler) and a call (CUDA events, host
+           clock) beside its bound and the block-state loop's times. Phase
+           19 holds every stream to one D launch a chunk (the classic
+           chain's EQ, the mastering chain's exciter)
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
@@ -217,8 +225,8 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 ``python3 chip_smoke.py --time-ballistics-of DIR`` only times kernel B's two
 launches of the package in the checkout DIR (see :func:`time_ballistics`),
 ``--time-frac-delay-of DIR`` kernel C's (see :func:`time_frac_delay`),
-and ``--time-style-step`` splits style_transfer's step (see
-:func:`time_style_step`).
+``--time-style-step`` splits style_transfer's step (see
+:func:`time_style_step`), and ``--coupled-step`` runs phase 22 alone.
 """
 
 from __future__ import annotations
@@ -391,6 +399,8 @@ EXAMPLE_STEP_LAUNCHES["auto_eq resumed"] = EXAMPLE_STEP_LAUNCHES["auto_eq"]
 # and fp32 operations outside the tensor cores, per second
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# and float64 operations outside the tensor cores
+FP64_OPS_PER_S = 34e12
 # fp32 operations per sample of a biquad section (5 multiplies, 4 adds)
 SECTION_OPS = 9
 
@@ -438,6 +448,15 @@ def launch_counts() -> dict:
 
     counts = trace.snapshot()["counts"]
     return {k: counts.get(c, 0) for k, c in LAUNCH_COUNTERS.items()}
+
+
+def kernel_d_launches() -> int:
+    """Kernel D's launches since the counters were last reset (not among
+    LAUNCH_COUNTERS, whose phases compare all their launches with fixed
+    dicts)."""
+    from dasp_tpu_torch import trace
+
+    return trace.snapshot()["counts"].get("kernel_d.forward", 0)
 
 
 def reset_launch_counts() -> None:
@@ -2728,6 +2747,10 @@ def check_stream(what, chain, offline, x, chunk, smoother, card):
     launches = {k: v for k, v in launch_counts().items() if v}
     want = {"ballistics": n_run} if smoother == "exact" else {}
     require(launches == want, f"{what}: launches {launches}, expected {want}")
+    # both chains have one coupled stream step a chunk (the EQ; the exciter)
+    launches["sosfilt_coupled_step"] = kernel_d_launches()
+    require(launches["sosfilt_coupled_step"] == n_run,
+            f"{what}: {launches['sosfilt_coupled_step']} kernel D launches, expected {n_run}")
     require(bool(torch.isfinite(y).all()) and y.shape == (x.shape[0], 2, x.shape[-1]), f"{what}: bad output")
     ref = offline(x)
     scale = max(1.0, float(ref.abs().max()))
@@ -2856,6 +2879,81 @@ def phase_streaming(seed, device, card):
                   f"alone {fmt_ms(kernel_device_ms(fn, 'ballistics_kernel', 50))} (profiler) | {card}")
     print("[stream] " + json.dumps({what: {k: v for k, v in r.items() if k != "launches"} for what, r in rows}))
     return total
+
+
+def phase_coupled_step(seed, device, card):
+    """Phase 22: kernel D, the coupled cascade's stream step, at the serving
+    cells' shapes (bs 1 and 8 stereo streams, chunks of 512, the classic
+    chain's 6 EQ sections, a carried state): against its plain float64
+    loop and against the block-state loop it replaces (both within one
+    fp32 ulp of the peak), its time alone and a call's beside its bound
+    and the block-state loop's. Returns the bs 8 row's results."""
+    import torch
+
+    from dasp_tpu_torch import functional as F
+    from dasp_tpu_torch.ops import iir as I
+    from dasp_tpu_torch.ops import iir_stream_kernel as DK
+
+    gen = torch.Generator(device=device).manual_seed(seed + 22)
+    out = {}
+    for bs in STREAM_BS["classic"]:
+        chunk, R, S = 512, 2 * bs, 6
+        eq = [torch.full((bs,), v, device=device) for v in STREAM_EQ]
+        sos = F.parametric_eq_sos(bs, torch.float32, SR, *eq, device=device)
+        x = 0.3 * torch.randn((bs, 2, chunk), generator=gen, device=device)
+        rows = x.reshape(R, chunk)
+        ops = I.coupled_operators(sos, x.shape)
+        real, blocks = ops.get("realization"), ops.get("blocks")
+        zi = 0.1 * torch.randn((R, S, 2), generator=gen, device=device)
+        reset_launch_counts()
+        y, zf = DK.coupled_step(real, rows, zi)
+        torch.cuda.synchronize()
+        require(kernel_d_launches() == 1, f"kernel D on {R} x {chunk}: {kernel_d_launches()} launches")
+        t0 = time.perf_counter()
+        y_p, zf_p = DK.coupled_step_plain(real, rows, zi)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+
+        def block_form():
+            return I._sosfilt_coupled_rows(blocks, rows.double(), zi.double())
+
+        y_b, zf_b = block_form()
+        eps = float(torch.finfo(torch.float32).eps)
+        errs = {}
+        for name, (yy, zz) in (("plain", (y_p, zf_p)), ("block", (y_b, zf_b))):
+            errs[name] = max(float((y.double() - yy).abs().max()) / float(yy.abs().max()),
+                             float((zf.double() - zz).abs().max()) / float(zz.abs().max()))
+            require(errs[name] <= eps, f"kernel D on {R} x {chunk}: {errs[name]:.3e} of the peak from the "
+                    f"{name} loop > one fp32 ulp ({eps:.3e})")
+        fn = lambda: DK.coupled_step(real, rows, zi)  # noqa: E731
+        alone = kernel_device_ms(fn, "coupled_step_kernel", 200)
+        call = cuda_ms(fn, 500)
+        n_host = 2000
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_host):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / n_host
+        torch.cuda.synchronize()
+        block_dev = device_ms_by_kernel(block_form, (), 50)["all"]
+        block_call = cuda_ms(block_form, 100)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            block_form()
+        block_host = (time.perf_counter() - t0) * 1e3 / 200
+        torch.cuda.synchronize()
+        nbytes = 2 * R * chunk * 4 + R * S * 9 * 8 + 2 * R * S * 2 * 4
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * R * chunk * S / FP64_OPS_PER_S
+        bnd = {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"[kernel D] {bs} x 2 x {chunk}, {S} sections, from a carried state: from the plain float64 loop "
+              f"{errs['plain']:.3e}, from the block-state loop {errs['block']:.3e} of the peak; kernel alone "
+              f"{fmt_ms(alone)} (profiler; {chunk + S - 1} dependent steps a row), a call {call:.4f} ms (CUDA "
+              f"events), {host:.4f} ms of host time a call (no synchronize); bound {bnd['bound_ms']:.6f} ms "
+              f"({bnd['bound_by']}); the block-state loop it replaces: device {fmt_ms(block_dev)} a call "
+              f"(profiler, all kernels), {block_call:.4f} ms a call (CUDA events), {block_host:.4f} ms of host "
+              f"time a call; the plain loop {plain_ms:.1f} ms (host clock) | {card}")
+        out = {"err": errs["plain"], "ms": call, "alone_ms": alone, "plain_ms": plain_ms, **bnd}
+    return out
 
 
 def run_example(name, argv):
@@ -3561,6 +3659,7 @@ def main() -> int:
                     help="only time kernel C's launches of the package in the checkout DIR (see time_frac_delay)")
     ap.add_argument("--time-style-step", action="store_true",
                     help="only split style_transfer's step (see time_style_step)")
+    ap.add_argument("--coupled-step", action="store_true", help="only run phase 22 (kernel D)")
     args = ap.parse_args()
 
     import torch
@@ -3594,6 +3693,9 @@ def main() -> int:
     if args.time_style_step:
         time_style_step(args.seed, device, card)
         return 0
+    if args.coupled_step:
+        phase_coupled_step(args.seed, device, card)
+        return 0
     log = _build.build_log()
     if log:  # ptxas -v: per kernel instantiation
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -3626,6 +3728,7 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     for k, v in phase_parallel(args.seed, device, card).items():
         launches[k] = launches.get(k, 0) + v
+    res_d = phase_coupled_step(args.seed, device, card)
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [
@@ -3638,6 +3741,7 @@ def main() -> int:
         ("ballistics_bwd", "ballistics_bwd.cu", "dasp_tpu/ops/pallas_ballistics.py:69", res_bb[T]),
         ("frac_delay", "frac_delay.cu", "dasp_tpu/ops/pallas_interp.py:96", res_c[configs[0][0]]),
         ("frac_delay_bwd", "frac_delay_bwd.cu", "dasp_tpu/ops/pallas_interp.py:135", res_cb[configs[0][0]]),
+        ("sosfilt_coupled_step", "sosfilt_coupled_step.cu", None, res_d),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{src}", "replaces": tpu,

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "ballistics_tile": ([], _I),
     "frac_delay_f32": ([_P] * 4 + [_I, _I, _I, _T, _I, _I, _P], _I),
     "frac_delay_bwd_f32": ([_P] * 7 + [_I, _I, _I, _T, _I, _I, _P], _I),
+    "sosfilt_coupled_step_f32": ([_P] * 5 + [_I, _I, _T, _P], _I),
+    "sosfilt_coupled_step_f64": ([_P] * 5 + [_I, _I, _T, _P], _I),
 }
 
 _log = {"nvcc": ""}

@@ -12,7 +12,9 @@ kernel is also built from), the first-order scans ``onepole_exact``,
 ``sosfilt_blockmat``, ``lfilter1_blockmat`` and ``sosfilt_coupled`` (the
 block-state formulation: one batched matmul per section for the
 intra-block Toeplitz part, an associative scan over blocks for the carried
-state; ``sosfilt_coupled`` on the Gold-Rader coupled realization),
+state; ``sosfilt_coupled`` on the Gold-Rader coupled realization, whose
+stream steps on the card run the stream step's kernel instead,
+:mod:`~dasp_tpu_torch.ops.iir_stream_kernel`),
 ``lti_affine_scan`` (that scan, with the adjoint recurrence as its
 backward), ``ballistics_smooth`` (``"parallel"``, ``"attack_only"`` and
 ``"exact"``, the last the plain version of the ballistics kernel) and
@@ -51,6 +53,7 @@ import torch.nn.functional as nnf
 
 from ..trace import span
 from .ballistics_kernel import ballistics_rows_plain
+from .iir_stream_kernel import MAX_SECTIONS, coupled_step
 
 __all__ = [
     "onepole_exact",
@@ -800,17 +803,64 @@ def _sosfilt_coupled_rows(operators, rows, zi_rows, seq_group=None):
     return y[:, :T], torch.stack(zf, dim=1)
 
 
-def coupled_operators(sos: torch.Tensor, x_shape, block: int = 128, stabilize: bool = True):
+def _coupled_realization(sos_rows):
+    """The realization of :func:`_coupled_state_space` packed per (row,
+    section) as ``[A00, A01, A10, A11, b0, b1, c0, c1, d]``: (R, S, 9), what
+    the stream step's kernel reads (:mod:`~dasp_tpu_torch.ops.iir_stream_kernel`)."""
+    A, bvec, cvec, d = _coupled_state_space(sos_rows)
+    return torch.cat([A.flatten(-2), bvec, cvec, d[..., None]], dim=-1).contiguous()
+
+
+class CoupledOperators:
     """What :func:`sosfilt_coupled` builds from the sections alone for a
-    signal of shape ``x_shape``: the (R, S, 6) float64 sections (stabilized
-    if ``stabilize``, each item's repeated for its rows) and their
-    :func:`_coupled_operators` for blocks of ``block``. Pass the pair as
-    ``sosfilt_coupled(operators=)`` to filter signals of the same leading
-    shape without building it again."""
+    signal's leading shape and a block length: the (R, S, 6) float64
+    sections ``sos_rows`` (stabilized if asked, each item's repeated for its
+    rows) and, each made at its first use and kept, the two forms the
+    cascade runs on: ``"blocks"``, the :func:`_coupled_operators` of the
+    block-state path, and ``"realization"``, the packed
+    :func:`_coupled_realization` of the stream step's kernel. Both come
+    from the same sections by the same operations whoever asks first, so a
+    kept object filters bitwise as a fresh one."""
+
+    __slots__ = ("sos_rows", "block", "_made")
+
+    def __init__(self, sos_rows: torch.Tensor, block: int):
+        self.sos_rows, self.block, self._made = sos_rows, block, {}
+
+    def get(self, form: str):
+        made = self._made.get(form)
+        if made is None:
+            if form == "blocks":
+                made = _coupled_operators(self.sos_rows, self.block)
+            elif form == "realization":
+                made = _coupled_realization(self.sos_rows)
+            else:
+                raise ValueError(f"unknown form {form!r}: 'blocks' or 'realization'")
+            self._made[form] = made
+        return made
+
+
+def coupled_operators(sos: torch.Tensor, x_shape, block: int = 128, stabilize: bool = True) -> CoupledOperators:
+    """What :func:`sosfilt_coupled` builds from the sections alone for a
+    signal of shape ``x_shape`` and blocks of ``block`` (see
+    :class:`CoupledOperators`). Pass it as ``sosfilt_coupled(operators=)``
+    to filter signals of the same leading shape without building it
+    again."""
     if stabilize:
         sos = stabilize_sos(sos)
-    sos_rows = _per_row(sos.to(WORK_DTYPE), x_shape)
-    return sos_rows, _coupled_operators(sos_rows, block)
+    return CoupledOperators(_per_row(sos.to(WORK_DTYPE), x_shape), block)
+
+
+def _coupled_form(x, zi, return_zf, seq_group, sos) -> str:
+    """The form of :class:`CoupledOperators` a call of :func:`sosfilt_coupled`
+    runs on, from what the call itself shows: ``"realization"`` (the stream
+    step's kernel) for a stream step (``return_zf``, no ``seq_group``) of a
+    CUDA float32 or float64 x with at most MAX_SECTIONS sections and nothing
+    that requires grad under grad mode; else ``"blocks"``."""
+    kernel = (return_zf and seq_group is None and x.is_cuda and x.dtype in (torch.float32, torch.float64)
+              and sos.shape[-2] <= MAX_SECTIONS
+              and not (torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, zi, sos))))
+    return "realization" if kernel else "blocks"
 
 
 def sosfilt_coupled(
@@ -845,6 +895,15 @@ def sosfilt_coupled(
     ``return_zf`` to carry it across chunks; it is opaque realization
     state, not ``sosfilt_blockmat``'s.
 
+    The engine a stream step takes on the card: a call with ``return_zf``,
+    no ``seq_group``, x a CUDA float32 or float64 tensor, at most 32
+    sections, and nothing that requires grad under grad mode runs the whole
+    cascade in one launch of the stream step's kernel
+    (:func:`~dasp_tpu_torch.ops.iir_stream_kernel.coupled_step`, kernel D):
+    the same realization and state, sample by sample in float64, y and zf
+    rounded once as here. Every other call (CPU tensors, the offline and
+    sharded filters, differentiable steps) runs the block-state loop.
+
     Sequence-sharded: with ``seq_group``, a ``torch.distributed`` process
     group whose ranks hold consecutive blocks of the time axis (the JAX
     package's ``seq_axis_name``), x is this rank's block and the recursion
@@ -866,27 +925,27 @@ def sosfilt_coupled(
             of ``block``).
         seq_group: the process group over which the time axis is split
             (None: x is the whole signal).
-        operators: the pair :func:`coupled_operators` built from ``sos``
-            for x's leading shape and ``block``, used in place of building
-            it (``sos`` and ``stabilize`` are then not read).
+        operators: what :func:`coupled_operators` built from ``sos`` for
+            x's leading shape and ``block``, used in place of building it
+            (``sos`` and ``stabilize`` are then not read).
 
     Returns:
         Filtered signal, same shape as x; with ``return_zf`` a tuple
         ``(y, zf)``.
     """
     T = x.shape[-1]
-    x_work = x.to(WORK_DTYPE)
+    form = _coupled_form(x, zi, return_zf, seq_group, sos if operators is None else operators.sos_rows)
     if operators is None:
         with span("iir.coupled.operators"):
             operators = coupled_operators(sos, x.shape, block, stabilize)
-    sos_rows, operators = operators
+            operators.get(form)
+    sos_rows = operators.sos_rows
     R, S = sos_rows.shape[0], sos_rows.shape[1]
-    if R != math.prod(x.shape[:-1]) or operators[2].shape[-1] != block:
+    if R != math.prod(x.shape[:-1]) or operators.block != block:
         raise ValueError(
-            f"operators built for {R} rows and blocks of {operators[2].shape[-1]}; "
+            f"operators built for {R} rows and blocks of {operators.block}; "
             f"x has {math.prod(x.shape[:-1])} rows and block is {block}"
         )
-    rows = x_work.reshape(R, T)
     if return_zf and T % block:
         raise ValueError(
             f"return_zf requires T ({T}) to be a multiple of block ({block}); "
@@ -897,8 +956,13 @@ def sosfilt_coupled(
             "sequence-sharded filtering requires zi=None and a per-device "
             f"length divisible by block ({block}); got T={T}"
         )
+    if form == "realization":
+        with span("kernel_d.forward"):
+            y, zf = coupled_step(operators.get(form), x.reshape(R, T), None if zi is None else zi.reshape(R, S, 2))
+        return y.reshape(x.shape), zf.reshape(*x.shape[:-1], S, 2)
+    rows = x.to(WORK_DTYPE).reshape(R, T)
     zi_rows = rows.new_zeros((R, S, 2)) if zi is None else zi.to(WORK_DTYPE).reshape(R, S, 2)
-    y, zf = _sosfilt_coupled_rows(operators, rows, zi_rows, seq_group)
+    y, zf = _sosfilt_coupled_rows(operators.get(form), rows, zi_rows, seq_group)
     y = y.reshape(x.shape).to(x.dtype)
     if return_zf:
         return y, zf.reshape(*x.shape[:-1], S, 2).to(x.dtype)

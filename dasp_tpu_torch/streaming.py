@@ -12,7 +12,14 @@ starts from rest; chunk lengths must be multiples of the IIR block length
 hop.
 
 The IIR streams carry the block-state filters' ``zi`` / ``zf``
-(``ops.sosfilt_coupled``, ``ops.sosfilt_blockmat``), the reverbs an
+(``ops.sosfilt_coupled``, ``ops.sosfilt_blockmat``). On a CUDA chunk a
+coupled step (the parametric and graphic EQs, and every stream that goes
+through :func:`sosfilt_stream`'s default) runs its whole cascade in one
+launch of the stream step's kernel (kernel D,
+:func:`~dasp_tpu_torch.ops.iir_stream_kernel.coupled_step`), in float64
+inside; on a CPU chunk, or where a parameter or the chunk requires grad
+under grad mode, it runs the block-state loop. The state is the same
+either way. The reverbs carry an
 overlap-save history with the IR's spectrum taken once. The true
 attack/release ballistics carry the ``(ya, ym)`` envelope state:
 ``smoother="exact"`` runs the branching recursion through the ballistics
@@ -36,7 +43,9 @@ Memoryless effects (gain, distortion, panner, widener, bus) need no state:
 call the offline functions on each chunk.
 
 The parametric EQ stream keeps its designed sections and coupled
-operators across chunks while its parameters are unchanged (a small memo
+operators (:func:`~dasp_tpu_torch.ops.iir.coupled_operators`: the packed
+realization kernel D reads, or the block-state operators, each made at
+first use) across chunks while its parameters are unchanged (a small memo
 held by this module, :class:`_OperatorMemo`): a chunk whose 18 parameters,
 sample rate and leading shape, dtype and device match a kept entry bit for
 bit filters with that entry, bitwise what a rebuild gives. Only the inputs
@@ -49,8 +58,10 @@ Spans (:mod:`~dasp_tpu_torch.trace`, on in a profiled run):
 that they fall inside any wrapper a caller puts round a step; inside
 ``stream.parametric_eq``, ``eq.design`` round getting the sections and
 ``iir.coupled.operators`` round getting the operators, once a call whether
-the memo keeps them or they are built. Counters: ``stream.eq_operators.hit``
-or ``stream.eq_operators.miss`` once on each call that consults the memo.
+the memo keeps them or they are built; ``kernel_d.forward`` round the
+stream step's kernel. Counters: ``stream.eq_operators.hit`` or
+``stream.eq_operators.miss`` once on each call that consults the memo;
+``kernel_d.forward`` once a launch of kernel D.
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ from .ops.biquad import biquad
 from .ops.fft_filter import fft_freqz, next_pow2
 from .ops.fir import fft_conv_causal
 from .ops.iir import (
+    _coupled_form,
     ballistics_smooth,
     coupled_operators,
     embed_first_order_sos,
@@ -131,8 +143,9 @@ def sosfilt_stream(
         x: chunk (bs, ..., T); T a multiple of ``block``.
         zi: the previous step's state (None = from rest).
         filter_method: "coupled" (the default, :func:`~dasp_tpu_torch.ops.
-            sosfilt_coupled`) or "block" (:func:`~dasp_tpu_torch.ops.
-            sosfilt_blockmat`).
+            sosfilt_coupled`: one launch of the stream step's kernel on a
+            CUDA chunk, see the module docstring) or "block"
+            (:func:`~dasp_tpu_torch.ops.sosfilt_blockmat`).
         block: the formulations' intra-block length.
 
     Returns:
@@ -265,6 +278,7 @@ def parametric_eq_stream(
         with span("iir.coupled.operators"):
             if operators is None:
                 operators = coupled_operators(sos, x.shape, _EQ_BLOCK)
+                operators.get(_coupled_form(x, zi, True, None, operators.sos_rows))  # what this call runs on
                 if not (nan or values_nan):
                     _EQ_MEMO.store(key, values, operators)
         return sosfilt_coupled(None, x, block=_EQ_BLOCK, zi=zi, return_zf=True, operators=operators)

@@ -22,7 +22,7 @@ on. A span that is on
 autograd engine's threads count too). The kernel engines count
 their launches with it (``kernel_a.forward``, ``kernel_a.save_all``,
 ``kernel_a.adjoint``, ``kernel_b.forward``, ``kernel_b.backward``,
-``kernel_c.forward``, ``kernel_c.backward``).
+``kernel_c.forward``, ``kernel_c.backward``, ``kernel_d.forward``).
 
 :func:`snapshot` returns both tables, :func:`reset` clears them. Nothing is
 written to disk.

@@ -26,7 +26,11 @@ same card tensors: the forward, dd and dg bitwise equal (the same fp32
 operations in the same order, channels summed in order), dx within 1e-6 of
 its largest value (both sum by atomics, in an order that changes from run
 to run), on edge shapes too (B % 4 != 0, ragged T, odd Dm, one to three
-channels, misaligned rows, delays drawn at random).
+channels, misaligned rows, delays drawn at random). The coupled cascade's
+stream step kernel (D) against its plain float64 loop within one fp32 ulp
+of the peak (float32 rows; 1e-12 on float64 rows), chained over 64 chunks
+against the offline cascade within the stream tests' 5e-4, one launch a
+stream step and none for a differentiable or offline call.
 """
 
 import numpy as np
@@ -39,7 +43,9 @@ from dasp_tpu_torch import trace
 from dasp_tpu_torch.modules import ParametricEQ
 from dasp_tpu_torch.ops import ballistics_kernel as BK
 from dasp_tpu_torch.ops import frac_delay_kernel as FK
+from dasp_tpu_torch.ops import iir as I
 from dasp_tpu_torch.ops import iir_kernel as IK
+from dasp_tpu_torch.ops import iir_stream_kernel as DK
 from dasp_tpu_torch.ops.biquad import biquad
 
 SR = 44100
@@ -580,17 +586,101 @@ def test_stream_eq_memo_hit_on_the_card(cuda):
     _, zi = S.parametric_eq_stream(c1, SR, *eq, zi=zi)  # warm: the hit path's first run
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = launches("kernel_d.forward")
     with torch.profiler.profile(activities=acts) as prof:
         y, zf = S.parametric_eq_stream(c2, SR, *eq, zi=zi)
         torch.cuda.synchronize()
     counts = trace.snapshot()["counts"]
     assert (counts.get("stream.eq_operators.hit"), counts.get("stream.eq_operators.miss")) == (2, 1)
+    assert launches("kernel_d.forward") - before == 1
     events = prof.events()
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     assert any("gemm" in e.name.lower() or "kernel" in e.name.lower() for e in device), "no device events traced"
+    assert sum("coupled_step_kernel" in e.name for e in device) == 1
     assert sum("DtoH" in e.name for e in device) <= 1
     names = {e.name for e in events}
-    assert not names & {"aten::sin", "aten::cos", "aten::einsum"}
+    assert not names & {"aten::sin", "aten::cos", "aten::einsum", "aten::matmul", "aten::bmm", "_LTIAffineScan"}
     y_r, zf_r = rebuild(c2, zi)
     assert torch.equal(y, y_r) and torch.equal(zf, zf_r)
     S._EQ_MEMO.clear()
+
+
+def coupled_sos(S, bs, seed):
+    """S sections of the serving EQs: the 20 Hz / Q 6 shelf (1), the
+    parametric EQ at random parameters (6), the graphic EQ at +-12 dB (10)."""
+    if S == 1:
+        return shelf_sos(bs)
+    if S == 6:
+        return eq_sos(bs, seed)
+    gains = torch.tensor(np.random.default_rng(seed).uniform(-12, 12, (bs, 10)).astype(np.float32))
+    return F.graphic_eq_sos(bs, torch.float32, SR, gains)
+
+
+@pytest.mark.parametrize("S", [1, 6, 10])
+@pytest.mark.parametrize("bs,T,dtype", [(1, 512, torch.float32), (8, 512, torch.float32),
+                                        (2, 4096, torch.float32), (8, 512, torch.float64)])
+def test_kernel_d_matches_its_plain_version(cuda, S, bs, T, dtype):
+    """Kernel D's step from a carried state against the plain float64 loop:
+    output and state within one fp32 ulp of their peak (float32 rows), or
+    1e-12 of it (float64 rows)."""
+    x = torch.tensor((np.random.default_rng(T + S).standard_normal((bs, 2, T)) * 0.25)).to(dtype)
+    ops = I.coupled_operators(coupled_sos(S, bs, seed=S).to(cuda), x.shape)
+    real = ops.get("realization")
+    zi = torch.tensor(np.random.default_rng(S).standard_normal((2 * bs, S, 2)) * 0.1).to(dtype)
+    before = launches("kernel_d.forward")
+    y, zf = DK.coupled_step(real, x.reshape(2 * bs, T).to(cuda), zi.to(cuda))
+    torch.cuda.synchronize()
+    assert launches("kernel_d.forward") - before == 1
+    assert y.dtype == dtype and zf.dtype == dtype
+    y_p, zf_p = DK.coupled_step_plain(real.cpu(), x.reshape(2 * bs, T), zi)
+    rel = torch.finfo(torch.float32).eps if dtype == torch.float32 else 1e-12
+    for got, want in ((y, y_p), (zf, zf_p)):
+        assert float((got.cpu().double() - want).abs().max()) <= rel * float(want.abs().max())
+
+
+def test_kernel_d_chained_over_64_chunks_matches_offline(cuda):
+    """The parametric EQ stream at 8 stereo streams, 64 chunks of 512, one
+    kernel D launch a chunk, against the offline coupled cascade of the
+    whole signal (tests/test_torch_streaming.py's 5e-4 of max(1, peak))."""
+    from dasp_tpu_torch import streaming as S
+
+    bs, chunk, n = 8, 512, 64
+    eq = [torch.full((bs,), v, device=cuda) for v in (2.0, 200.0, 0.7, 3.0, 400.0, 1.0, -2.0, 3000.0, 2.0, 1.0,
+                                                      9000.0, 1.0, 2.0, 13000.0, 1.0, -3.0, 8000.0, 0.7)]
+    x = 0.25 * torch.randn((bs, 2, n * chunk), generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    S._EQ_MEMO.clear()
+    before = launches("kernel_d.forward")
+    zi, ys = None, []
+    for c in x.split(chunk, dim=-1):
+        y, zi = S.parametric_eq_stream(c.contiguous(), SR, *eq, zi=zi)
+        ys.append(y)
+    assert launches("kernel_d.forward") - before == n
+    want = F.parametric_eq(x, SR, *eq, filter_method="coupled")
+    gap = float((torch.cat(ys, dim=-1) - want).abs().max()) / max(1.0, float(want.abs().max()))
+    assert gap <= 5e-4
+    S._EQ_MEMO.clear()
+
+
+@pytest.mark.parametrize("call", ["params_require_grad", "chunk_requires_grad", "offline", "seq_group"])
+def test_kernel_d_is_not_launched_outside_a_plain_stream_step(cuda, call):
+    """Differentiable steps and offline calls keep the block-state path on
+    the card (and a sharded call would: the engine's rule is read directly)."""
+    bs, T = 2, 512
+    sos = eq_sos(bs, seed=2).to(cuda)
+    x = 0.25 * torch.randn((bs, 2, T), device=cuda)
+    if call == "seq_group":
+        sos_rows = I.coupled_operators(sos, x.shape).sos_rows
+        assert I._coupled_form(x, None, True, None, sos_rows) == "realization"
+        assert I._coupled_form(x, None, True, object(), sos_rows) == "blocks"
+        return
+    if call == "params_require_grad":
+        sos.requires_grad_(True)
+    if call == "chunk_requires_grad":
+        x.requires_grad_(True)
+    before = launches("kernel_d.forward")
+    out = I.sosfilt_coupled(sos, x) if call == "offline" else I.sosfilt_coupled(sos, x, return_zf=True)[0]
+    torch.cuda.synchronize()
+    assert launches("kernel_d.forward") == before
+    if call != "offline":
+        out.square().sum().backward()
+        assert torch.isfinite((sos if call == "params_require_grad" else x).grad).all()
