@@ -34,7 +34,7 @@ Layouts at the public functions are the JAX package's: audio is
 (bs, ch, T), parameter tensors (bs, n_params).
 """
 
-from . import functional, models, modules, ops, streaming, train, utils
+from . import functional, models, modules, ops, streaming, utils
 from .functional import (
     advanced_distortion,
     auto_wah,
@@ -192,3 +192,12 @@ __all__ = [
     "TimeStretch",
     "PitchShiftPV",
 ]
+
+
+def __getattr__(name):
+    # the training steps load at first use, so that serving loads none of them
+    if name == "train":
+        import importlib
+
+        return importlib.import_module(".train", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load and launch the hand-written CUDA kernels.
 
 The kernels live in ``csrc/*.cu`` as plain C entry points. At first use
 this module compiles each source with its own ``nvcc`` process, all started
@@ -9,8 +9,12 @@ later call in the same process reuses the loaded library; a later process
 finds the cached file and skips the compile. Nothing here runs at import
 time, and nothing needs PyTorch's C++ headers, so a build takes seconds.
 
-The CPU tests never reach this module: the kernel wrappers call
-:func:`library` only for tensors on a CUDA device.
+The kernel wrappers in ``ops/`` share two more decisions, made here once:
+:func:`engine`, which of a wrapper's two engines runs a call (the plain
+PyTorch one on a CPU tensor, the CUDA one on a CUDA tensor), and
+:func:`launch`, how a CUDA engine calls an entry point (on the current
+stream of its tensors' device, with the error checked). The CPU tests never
+reach :func:`library`: only the CUDA engines launch.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "check", "build_log"]
+import torch
+
+__all__ = ["library", "launch", "engine", "build_log"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -129,7 +135,27 @@ def build_log() -> str:
     return _log["nvcc"]
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a kernel entry point reported a CUDA error."""
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the entry point ``entry`` with ``args`` and the current stream of
+    ``device`` (made the current device first only when it is not), and
+    raise if it reports a CUDA error."""
+    fn = getattr(library(), entry)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} (a cudaError_t value)")
+        raise RuntimeError(f"{entry}: CUDA error {err} (a cudaError_t value)")
+
+
+def engine(entry: str, device: torch.device, plain, cuda, check, *args):
+    """The engine the wrapper ``entry`` runs a call on: ``plain`` for a CPU
+    tensor, ``cuda`` for a CUDA one once ``check(*args)`` has passed, and a
+    ValueError for any other device."""
+    if device.type == "cpu":
+        return plain
+    if device.type == "cuda":
+        check(*args)
+        return cuda
+    raise ValueError(f"{entry} runs on CPU or CUDA tensors, not {device}")

@@ -14,7 +14,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from ..train import _entry_device
+from ..functional import _entry_device
 from ..utils.audio import index_wav_dataset, load_clip_batch, synthetic_batch
 from ..utils.pipeline import device_prefetch
 

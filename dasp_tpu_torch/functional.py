@@ -159,6 +159,16 @@ def _params(bs: int, dtype, device, *ps):
     return tuple(_param(p, bs, dtype, device) for p in ps)
 
 
+def _entry_device(device) -> torch.device:
+    """The device an entry point builds on: the one the caller names, else
+    the CUDA card. Never the CPU unless named."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: name one, or pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def db_to_linear(db: torch.Tensor) -> torch.Tensor:
     """Convert decibels to linear amplitude: 10 ** (db / 20)."""
     return 10.0 ** (db / 20.0)

@@ -125,18 +125,12 @@ class _CudaEngine:
         y = torch.empty_like(g)
         if R == 0 or T == 0:
             return y
-        lib = _build.library()
-        ntiles = -(-T // lib.ballistics_tile())
+        ntiles = -(-T // _build.library().ballistics_tile())
         # the tile counter, each tile's published last output and each
         # tile's work (rounds, passes, samples walked again); zeroed
         scratch = torch.zeros(1 + 4 * R * ntiles, dtype=torch.int64, device=g.device)
-        with torch.cuda.device(g.device):
-            stream = torch.cuda.current_stream(g.device).cuda_stream
-            err = lib.ballistics_f32(
-                g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(), y.data_ptr(),
-                R, T, scratch.data_ptr(), stream,
-            )
-        _build.check(err, "ballistics_f32")
+        _build.launch("ballistics_f32", g.device, g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(),
+                      y.data_ptr(), R, T, scratch.data_ptr())
         count("kernel_b.forward")
         ballistics_pallas.last_work = scratch[1 + R * ntiles:].view(R, ntiles, 3)
         return y
@@ -148,21 +142,15 @@ class _CudaEngine:
         daa, dar, dy0 = (torch.zeros_like(y0) for _ in range(3))
         if R == 0 or T == 0:
             return dg, daa, dar, dy0
-        lib = _build.library()
-        tiles = R * -(-T // lib.ballistics_tile())
+        tiles = R * -(-T // _build.library().ballistics_tile())
         # the chunked scan's scratch: the tile counter, per tile whether its
         # carry is published and per row the blocks finished (zeroed); per
         # tile the carry and the two branch sums
         sync = torch.zeros(1 + tiles + R, dtype=torch.int32, device=g.device)
         states = torch.empty(3 * tiles, dtype=torch.float64, device=g.device)
-        with torch.cuda.device(g.device):
-            stream = torch.cuda.current_stream(g.device).cuda_stream
-            err = lib.ballistics_bwd_f32(
-                y.data_ptr(), g.data_ptr(), aa.data_ptr(), ar.data_ptr(), y0.data_ptr(),
-                ct.data_ptr(), dg.data_ptr(), daa.data_ptr(), dar.data_ptr(), dy0.data_ptr(),
-                R, T, sync.data_ptr(), states.data_ptr(), stream,
-            )
-        _build.check(err, "ballistics_bwd_f32")
+        _build.launch("ballistics_bwd_f32", g.device, y.data_ptr(), g.data_ptr(), aa.data_ptr(), ar.data_ptr(),
+                      y0.data_ptr(), ct.data_ptr(), dg.data_ptr(), daa.data_ptr(), dar.data_ptr(),
+                      dy0.data_ptr(), R, T, sync.data_ptr(), states.data_ptr())
         count("kernel_b.backward")
         return dg, daa, dar, dy0
 
@@ -198,18 +186,23 @@ def _check_cuda(g: torch.Tensor) -> None:
 
 
 def _rows(g, alpha_attack, alpha_release, y0):
+    """(bs, ch, T) ``g`` as (R, T) rows with per-row coefficients and state.
+    A coefficient is a scalar, has bs elements ((bs,), (bs, 1, 1)) or one per
+    channel or band ((bs, ch, 1)); ``y0`` is (bs, ch) or None (from rest)."""
     bs, ch, T = g.shape
     R = bs * ch
 
-    def coef(a):
-        a = torch.as_tensor(a, dtype=g.dtype, device=g.device).reshape(bs, 1)
-        return a.expand(bs, ch).reshape(R).contiguous()
+    def per_row(a):
+        a = torch.as_tensor(a, dtype=g.dtype, device=g.device)
+        if a.ndim != 3:
+            a = a.reshape(-1, 1, 1)
+        return torch.broadcast_to(a, (bs, ch, 1)).reshape(R).contiguous()
 
     if y0 is None:
         y0_rows = torch.zeros(R, dtype=g.dtype, device=g.device)
     else:
         y0_rows = torch.as_tensor(y0, dtype=g.dtype, device=g.device).reshape(R).contiguous()
-    return g.reshape(R, T), coef(alpha_attack), coef(alpha_release), y0_rows
+    return g.reshape(R, T), per_row(alpha_attack), per_row(alpha_release), y0_rows
 
 
 def _finish(y_rows, g, return_yf):
@@ -237,8 +230,9 @@ def ballistics_pallas(g, alpha_attack, alpha_release, y0=None, return_yf=False):
     Args:
         g: gain-reduction curve, shape (bs, ch, T); on CUDA float32 and
             contiguous.
-        alpha_attack / alpha_release: coefficients with bs elements
-            (e.g. (bs,) or (bs, 1, 1)).
+        alpha_attack / alpha_release: coefficients, each a scalar, with bs
+            elements ((bs,) or (bs, 1, 1)) or per channel or band
+            ((bs, ch, 1)).
         y0: carried envelope state, shape (bs, ch) (None = from rest).
         return_yf: also return the final state ``(y[..., -1], y[..., -1])``.
 
@@ -246,13 +240,7 @@ def ballistics_pallas(g, alpha_attack, alpha_release, y0=None, return_yf=False):
         Smoothed curve, same shape as g; with ``return_yf`` a tuple
         ``(y, (yf, yf))``.
     """
-    if g.device.type == "cpu":
-        engine = _PlainEngine
-    elif g.device.type == "cuda":
-        _check_cuda(g)
-        engine = _CudaEngine
-    else:
-        raise ValueError(f"ballistics_pallas runs on CPU or CUDA tensors, not {g.device}")
+    engine = _build.engine("ballistics_pallas", g.device, _PlainEngine, _CudaEngine, _check_cuda, g)
     rows = _rows(g, alpha_attack, alpha_release, y0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in rows):
         y = _BallisticsKernel.apply(*rows, engine)

@@ -145,17 +145,6 @@ class _PlainEngine:
     backward = staticmethod(frac_delay_bwd_plain)
 
 
-def _launch(device, fn, *args) -> None:
-    """Call the C entry point ``fn`` with the current stream of ``device``
-    (entering it first only when it is not the current device)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    _build.check(err, fn.__name__)
-
-
 class _CudaEngine:
     @staticmethod
     def forward(x_ext, d_stk, g_stk, B, Dm):
@@ -164,8 +153,8 @@ class _CudaEngine:
         wet = torch.empty((bs, chs, Tp), dtype=x_ext.dtype, device=x_ext.device)
         if wet.numel() == 0:
             return wet
-        _launch(x_ext.device, _build.library().frac_delay_f32,
-                x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(), wet.data_ptr(), bs, chs, nt, Tp, B, Dm)
+        _build.launch("frac_delay_f32", x_ext.device, x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(),
+                      wet.data_ptr(), bs, chs, nt, Tp, B, Dm)
         count("kernel_c.forward")
         return wet
 
@@ -178,10 +167,9 @@ class _CudaEngine:
         dg = torch.empty_like(g_stk)
         if ct.numel() == 0:
             return dx, dd.zero_(), dg.zero_()
-        _launch(x_ext.device, _build.library().frac_delay_bwd_f32,
-                x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(), ct.data_ptr(),
-                None if dx is None else dx.data_ptr(), dd.data_ptr(), dg.data_ptr(),
-                bs, chs, nt, Tp, B, Dm)
+        _build.launch("frac_delay_bwd_f32", x_ext.device, x_ext.data_ptr(), d_stk.data_ptr(), g_stk.data_ptr(),
+                      ct.data_ptr(), None if dx is None else dx.data_ptr(), dd.data_ptr(), dg.data_ptr(),
+                      bs, chs, nt, Tp, B, Dm)
         count("kernel_c.backward")
         return dx, dd, dg
 
@@ -259,13 +247,8 @@ def frac_delay_pallas(x_ext, d_stk, g_stk, B: int, Dm: int, wraps: bool = True) 
     del wraps
     B, Dm = int(B), int(Dm)
     _check_shapes(x_ext, d_stk, g_stk, B, Dm)
-    if x_ext.device.type == "cpu":
-        engine = _PlainEngine
-    elif x_ext.device.type == "cuda":
-        _check_cuda(x_ext, d_stk, g_stk)
-        engine = _CudaEngine
-    else:
-        raise ValueError(f"frac_delay_pallas runs on CPU or CUDA tensors, not {x_ext.device}")
+    engine = _build.engine("frac_delay_pallas", x_ext.device, _PlainEngine, _CudaEngine, _check_cuda,
+                           x_ext, d_stk, g_stk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_ext, d_stk, g_stk)):
         return _FracDelay.apply(x_ext, d_stk, g_stk, B, Dm, engine)
     with span("kernel_c.forward"):

@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..trace import span
-from .ballistics_kernel import ballistics_rows_plain
+from .ballistics_kernel import ballistics_plain
 from .iir_stream_kernel import MAX_SECTIONS, coupled_step
 
 __all__ = [
@@ -577,7 +577,7 @@ def ballistics_smooth(
       * ``"exact"``: the branching recursion itself (attack when
         g[n] < y[n-1]), a sequential loop over time; the plain version of
         the ballistics kernel
-        (:func:`~dasp_tpu_torch.ops.ballistics_kernel.ballistics_rows_plain`);
+        (:func:`~dasp_tpu_torch.ops.ballistics_kernel.ballistics_plain`);
       * ``"attack_only"``: the attack-coefficient one-pole alone.
 
     All are differentiable by autograd on the tensors' own device.
@@ -585,7 +585,8 @@ def ballistics_smooth(
     Args:
         g: gain-reduction curve in dB, shape (bs, ch, T).
         alpha_attack / alpha_release: coefficients broadcastable to g
-            (e.g. (bs, 1, 1)).
+            (e.g. (bs, 1, 1)); "exact" takes a scalar, bs elements or
+            (bs, ch, 1): one coefficient a row.
         mode: "parallel", "exact" or "attack_only".
         y0: carried state ``(y_attack_pass, y_main)`` from a previous chunk,
             each of shape g.shape[:-1]; "parallel" needs both (its branch
@@ -616,17 +617,7 @@ def ballistics_smooth(
 
     if mode != "exact":
         raise ValueError(f"Unknown ballistics mode: {mode!r}")
-    bs, ch, T = g.shape
-    R = bs * ch
-
-    def rows(alpha):
-        return torch.broadcast_to(_like(alpha, g), g.shape)[..., 0].reshape(R)
-
-    y0_rows = g.new_zeros(R) if ym0 is None else ym0.reshape(R).to(g.dtype)
-    y = ballistics_rows_plain(
-        g.reshape(R, T), rows(alpha_attack), rows(alpha_release), y0_rows
-    ).reshape(g.shape)
-    return (y, (y[..., -1], y[..., -1])) if return_yf else y
+    return ballistics_plain(g, alpha_attack, alpha_release, y0=ym0, return_yf=return_yf)
 
 
 def _max_combine(a, b):
@@ -934,18 +925,18 @@ def sosfilt_coupled(
         ``(y, zf)``.
     """
     T = x.shape[-1]
-    form = _coupled_form(x, zi, return_zf, seq_group, sos if operators is None else operators.sos_rows)
-    if operators is None:
-        with span("iir.coupled.operators"):
+    with span("iir.coupled.operators"):
+        if operators is None:
             operators = coupled_operators(sos, x.shape, block, stabilize)
-            operators.get(form)
-    sos_rows = operators.sos_rows
-    R, S = sos_rows.shape[0], sos_rows.shape[1]
-    if R != math.prod(x.shape[:-1]) or operators.block != block:
-        raise ValueError(
-            f"operators built for {R} rows and blocks of {operators.block}; "
-            f"x has {math.prod(x.shape[:-1])} rows and block is {block}"
-        )
+        sos_rows = operators.sos_rows
+        R, S = sos_rows.shape[0], sos_rows.shape[1]
+        if R != math.prod(x.shape[:-1]) or operators.block != block:
+            raise ValueError(
+                f"operators built for {R} rows and blocks of {operators.block}; "
+                f"x has {math.prod(x.shape[:-1])} rows and block is {block}"
+            )
+        form = _coupled_form(x, zi, return_zf, seq_group, sos_rows)
+        made = operators.get(form)
     if return_zf and T % block:
         raise ValueError(
             f"return_zf requires T ({T}) to be a multiple of block ({block}); "
@@ -958,11 +949,11 @@ def sosfilt_coupled(
         )
     if form == "realization":
         with span("kernel_d.forward"):
-            y, zf = coupled_step(operators.get(form), x.reshape(R, T), None if zi is None else zi.reshape(R, S, 2))
+            y, zf = coupled_step(made, x.reshape(R, T), None if zi is None else zi.reshape(R, S, 2))
         return y.reshape(x.shape), zf.reshape(*x.shape[:-1], S, 2)
     rows = x.to(WORK_DTYPE).reshape(R, T)
     zi_rows = rows.new_zeros((R, S, 2)) if zi is None else zi.to(WORK_DTYPE).reshape(R, S, 2)
-    y, zf = _sosfilt_coupled_rows(operators.get(form), rows, zi_rows, seq_group)
+    y, zf = _sosfilt_coupled_rows(made, rows, zi_rows, seq_group)
     y = y.reshape(x.shape).to(x.dtype)
     if return_zf:
         return y, zf.reshape(*x.shape[:-1], S, 2).to(x.dtype)

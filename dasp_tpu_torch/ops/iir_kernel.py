@@ -150,62 +150,45 @@ class _PlainEngine:
         return sosfilt_rows_plain(adj_sos, g.flip(-1), save_all=True).flip(-1)
 
 
-# the kernel's three entry points: (name, writes every section)
-_ENTRY = {
-    "forward": ("sosfilt_cascade_f32", False),
-    "save_all": ("sosfilt_cascade_save_all_f32", True),
-    "adjoint": ("sosfilt_cascade_adjoint_f32", True),
-}
-
-
-def _launch(use: str, sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    name, save_all = _ENTRY[use]
-    R, T = x.shape
-    S = sos.shape[1]
-    y = torch.empty((S, R, T) if save_all else (R, T), dtype=x.dtype, device=x.device)
-    if R == 0 or T == 0:
-        return y
-    lib = _build.library()
-    if S > lib.sosfilt_cascade_max_sections():
-        raise ValueError(
-            f"sosfilt kernel takes at most {lib.sosfilt_cascade_max_sections()} sections, got {S}"
-        )
-    # the chunked scan's scratch: a tile counter and per tile the sections
-    # published (zeroed), and each tile's outgoing state per section
-    tiles = R * -(-T // lib.sosfilt_cascade_tile())
-    sync = torch.zeros(1 + tiles, dtype=torch.int32, device=x.device)
-    states = torch.empty(tiles * S * 2, dtype=torch.float64, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, name)(sos.data_ptr(), x.data_ptr(), y.data_ptr(), R, S, T,
-                                 sync.data_ptr(), states.data_ptr(), stream)
-    _build.check(err, name)
-    return y
-
-
 class _CudaEngine:
     """The three uses of the cascade, each one launch of the CUDA kernel
-    (after the zero fill of its scratch)."""
+    (after the zero fill of its scratch). The adjoint's kernel walks time
+    backward: the flipped-time cascade with its input and outputs left in
+    forward time."""
+
+    @staticmethod
+    def _use(use: str, entry: str, sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        R, T = x.shape
+        S = sos.shape[1]
+        y = torch.empty((R, T) if use == "forward" else (S, R, T), dtype=x.dtype, device=x.device)
+        if R and T:
+            lib = _build.library()
+            if S > lib.sosfilt_cascade_max_sections():
+                raise ValueError(
+                    f"sosfilt kernel takes at most {lib.sosfilt_cascade_max_sections()} sections, got {S}"
+                )
+            # the chunked scan's scratch: a tile counter and per tile the
+            # sections published (zeroed), and each tile's outgoing state
+            # per section
+            tiles = R * -(-T // lib.sosfilt_cascade_tile())
+            sync = torch.zeros(1 + tiles, dtype=torch.int32, device=x.device)
+            states = torch.empty(tiles * S * 2, dtype=torch.float64, device=x.device)
+            _build.launch(entry, x.device, sos.data_ptr(), x.data_ptr(), y.data_ptr(), R, S, T,
+                          sync.data_ptr(), states.data_ptr())
+        count("kernel_a." + use)  # per use, empty rows included
+        return y
 
     @staticmethod
     def forward(sos, x):
-        y = _launch("forward", sos, x)
-        count("kernel_a.forward")
-        return y
+        return _CudaEngine._use("forward", "sosfilt_cascade_f32", sos, x)
 
     @staticmethod
     def save_all(sos, x):
-        y = _launch("save_all", sos, x)
-        count("kernel_a.save_all")
-        return y
+        return _CudaEngine._use("save_all", "sosfilt_cascade_save_all_f32", sos, x)
 
     @staticmethod
     def adjoint(adj_sos, g):
-        # the kernel walks time backward: the flipped-time cascade with its
-        # input and outputs left in forward time
-        outs = _launch("adjoint", adj_sos, g)
-        count("kernel_a.adjoint")
-        return outs
+        return _CudaEngine._use("adjoint", "sosfilt_cascade_adjoint_f32", adj_sos, g)
 
 
 class _SosfiltKernel(torch.autograd.Function):
@@ -290,13 +273,7 @@ def sosfilt_pallas(sos: torch.Tensor, x: torch.Tensor, stabilize: bool = True) -
     Returns:
         Filtered signal, same shape as x.
     """
-    if x.device.type == "cpu":
-        engine = _PlainEngine
-    elif x.device.type == "cuda":
-        _check_cuda(sos, x)
-        engine = _CudaEngine
-    else:
-        raise ValueError(f"sosfilt_pallas runs on CPU or CUDA tensors, not {x.device}")
+    engine = _build.engine("sosfilt_pallas", x.device, _PlainEngine, _CudaEngine, _check_cuda, sos, x)
     sos_rows, rows = _rows(sos, x, stabilize)
     sos_rows = sos_rows.contiguous()
     if torch.is_grad_enabled() and (sos_rows.requires_grad or rows.requires_grad):

@@ -109,12 +109,7 @@ def coupled_step(real: torch.Tensor, rows: torch.Tensor, zi: torch.Tensor | None
     zf = torch.empty((R, S, 2), dtype=rows.dtype, device=rows.device)
     if R == 0:
         return y, zf
-    name = _ENTRY[rows.dtype]
-    lib = _build.library()
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = getattr(lib, name)(real.data_ptr(), rows.data_ptr(), None if zi is None else zi.data_ptr(),
-                                 y.data_ptr(), zf.data_ptr(), R, S, T, stream)
-    _build.check(err, name)
+    _build.launch(_ENTRY[rows.dtype], rows.device, real.data_ptr(), rows.data_ptr(),
+                  None if zi is None else zi.data_ptr(), y.data_ptr(), zf.data_ptr(), R, S, T)
     count("kernel_d.forward")
     return y, zf

@@ -56,12 +56,13 @@ Spans (:mod:`~dasp_tpu_torch.trace`, on in a profiled run):
 ``stream.chunk`` round each ``StreamChain`` call, ``stream.parametric_eq``,
 ``stream.compressor`` and ``stream.reverb`` inside those three streams, so
 that they fall inside any wrapper a caller puts round a step; inside
-``stream.parametric_eq``, ``eq.design`` round getting the sections and
-``iir.coupled.operators`` round getting the operators, once a call whether
-the memo keeps them or they are built; ``kernel_d.forward`` round the
-stream step's kernel. Counters: ``stream.eq_operators.hit`` or
-``stream.eq_operators.miss`` once on each call that consults the memo;
-``kernel_d.forward`` once a launch of kernel D.
+``stream.parametric_eq``, ``eq.design`` round getting the sections (the
+memo's lookup; on a miss the design, stabilized and folded into rows) and
+``sosfilt_coupled``'s ``iir.coupled.operators`` round getting the form the
+call runs on, once a call whether the operators hold it or it is built;
+``kernel_d.forward`` round the stream step's kernel. Counters:
+``stream.eq_operators.hit`` or ``stream.eq_operators.miss`` once on each
+call that consults the memo; ``kernel_d.forward`` once a launch of kernel D.
 """
 
 from __future__ import annotations
@@ -80,7 +81,6 @@ from .ops.biquad import biquad
 from .ops.fft_filter import fft_freqz, next_pow2
 from .ops.fir import fft_conv_causal
 from .ops.iir import (
-    _coupled_form,
     ballistics_smooth,
     coupled_operators,
     embed_first_order_sos,
@@ -91,7 +91,6 @@ from .ops.iir import (
 )
 from .ops.tv_filter import tv_analysis_window
 from .trace import count, span
-from .train import _entry_device
 
 __all__ = [
     "sosfilt_stream",
@@ -270,17 +269,17 @@ def parametric_eq_stream(
             if memo is not None:
                 key, values, nan = memo
                 operators, values_nan = _EQ_MEMO.lookup(key, values)
+                count("stream.eq_operators." + ("miss" if operators is None else "hit"))
             if operators is None:
                 sos = F._parametric_eq_sections(x.shape[0], x.dtype, sample_rate, *params, device=x.device)
+                if memo is not None:
+                    operators = coupled_operators(sos, x.shape, _EQ_BLOCK)
+                    if not (nan or values_nan):
+                        _EQ_MEMO.store(key, values, operators)
         if memo is None:
             return sosfilt_stream(sos, x, zi=zi, filter_method=filter_method)
-        count("stream.eq_operators." + ("miss" if operators is None else "hit"))
-        with span("iir.coupled.operators"):
-            if operators is None:
-                operators = coupled_operators(sos, x.shape, _EQ_BLOCK)
-                operators.get(_coupled_form(x, zi, True, None, operators.sos_rows))  # what this call runs on
-                if not (nan or values_nan):
-                    _EQ_MEMO.store(key, values, operators)
+        # sosfilt_coupled builds the form this call runs on where the
+        # operators do not hold it yet, and keeps it in them
         return sosfilt_coupled(None, x, block=_EQ_BLOCK, zi=zi, return_zf=True, operators=operators)
 
 
@@ -304,25 +303,15 @@ def _ballistics_stream(g, alpha_attack, alpha_release, smoother, y0):
     by the ballistics kernel (:func:`~dasp_tpu_torch.ops.ballistics_pallas`,
     one launch; its plain loop on a CPU tensor), which takes ``ym``.
 
-    ``g`` is (bs, ch, T); the coefficients broadcast to (bs, ch, 1), so
-    per-band ones (bs, n_bands, 1) fold into rows of their own. Returns
-    ``(y, (ya_f, ym_f))``.
+    ``g`` is (bs, ch, T); the coefficients are per item or, as (bs,
+    n_bands, 1), per band. Returns ``(y, (ya_f, ym_f))``.
     """
     if smoother == "parallel":
         return ballistics_smooth(g, alpha_attack, alpha_release, mode="parallel", y0=y0, return_yf=True)
     if smoother != "exact":
         raise ValueError(f"Unknown streaming ballistics: {smoother!r}. Expected 'parallel' or 'exact'.")
-    bs, ch, T = g.shape
-    R = bs * ch
-
-    def rows(a):
-        return torch.broadcast_to(torch.as_tensor(a, dtype=g.dtype, device=g.device), (bs, ch, 1)).reshape(R)
-
-    ym = None if y0 is None else y0[1].reshape(R, 1)
-    y, (yf, _) = ballistics_pallas(g.reshape(R, 1, T).contiguous(), rows(alpha_attack), rows(alpha_release),
-                                   y0=ym, return_yf=True)
-    yf = yf.reshape(bs, ch)
-    return y.reshape(bs, ch, T), (yf, yf)
+    return ballistics_pallas(g.contiguous(), alpha_attack, alpha_release, y0=None if y0 is None else y0[1],
+                             return_yf=True)
 
 
 def _dynamics_stream(
@@ -670,7 +659,7 @@ def reverb_stream_init(
     Returns:
         The state dict for :func:`reverb_stream`.
     """
-    device = _entry_device(device)
+    device = F._entry_device(device)
     band_gains = torch.as_tensor(band_gains, dtype=dtype, device=device)
     band_decays = torch.as_tensor(band_decays, dtype=dtype, device=device)
     ir = F.noise_shaped_ir(
@@ -731,7 +720,7 @@ def convolution_reverb_stream_init(
             :func:`reverb_stream_init`).
         device: where the state lives; the CUDA card unless named.
     """
-    ir = torch.as_tensor(ir, dtype=dtype, device=_entry_device(device))
+    ir = torch.as_tensor(ir, dtype=dtype, device=F._entry_device(device))
     if ir.ndim == 1:
         ir = ir[None, None, :]
     elif ir.ndim == 2:

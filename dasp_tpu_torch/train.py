@@ -60,7 +60,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from .models import ParameterNetwork, StyleTransferNet, apply_style_chain, make_style_processors
-from .functional import spectral_noise_profile
+from .functional import _entry_device, spectral_noise_profile
 from .modules import Chain, DynamicEQ, Exciter, Limiter, MultibandCompressor, SpectralGate, TransientShaper
 from .trace import span
 from .utils.loss import multi_resolution_stft_loss, stft_loss
@@ -86,16 +86,6 @@ __all__ = [
 # the JAX package's smoke-scale net and IR (bench.py --smoke, examples --smoke)
 SMOKE_NET = dict(embed_dim=32, ch_dim=8, encoder_dilations=(1, 2, 4))
 SMOKE_IR = 2048
-
-
-def _entry_device(device) -> torch.device:
-    """The device an entry point builds on: the one the caller names, else
-    the CUDA card. Never the CPU unless named."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: name one, or pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
 
 
 def make_style_training(

@@ -458,19 +458,68 @@ def launches():
     return counts.get("kernel_a.forward", 0), counts.get("kernel_b.forward", 0)
 
 
-def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+# the coefficient shapes the exact ballistics' callers pass: per item, or
+# per channel or band (the streams' per-band coefficients)
+COEF_SHAPES = {"(bs,)": (2,), "(bs, 1, 1)": (2, 1, 1), "(bs, ch, 1)": (2, 3, 1)}
+
+
+def coefs(shape):
+    """Attack and release coefficients of ``shape``, different in every
+    row they reach."""
+    n = math.prod(shape)
+    aa = torch.linspace(0.5, 0.9, n).reshape(shape)
+    return aa, (0.99 - 0.05 * torch.linspace(0, 1, n)).reshape(shape)
+
+
+@pytest.mark.parametrize("shape", list(COEF_SHAPES))
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(shape):
+    """Both wrappers on a CPU tensor run their plain versions and count no
+    launch; the exact ballistics fold each coefficient shape and a (bs, ch)
+    state into the rows ``ballistics_rows_plain`` takes, bitwise."""
     a0, b0 = launches()
     x = torch.randn(2, 1, 300)
     assert torch.equal(IK.sosfilt_pallas(make_sos(2), x), IK.sosfilt_plain(make_sos(2), x))
-    g = torch.tensor(make_g())
-    assert torch.equal(BK.ballistics_pallas(g, 0.9 * torch.ones(2), 0.99 * torch.ones(2)),
-                       BK.ballistics_plain(g, 0.9 * torch.ones(2), 0.99 * torch.ones(2)))
+    g = torch.tensor(make_g(bs=6, T=700)).reshape(2, 3, 700)
+    y0 = -torch.rand(2, 3, generator=torch.Generator().manual_seed(4))
+    aa, ar = coefs(COEF_SHAPES[shape])
+    y = BK.ballistics_pallas(g, aa, ar, y0=y0)
+    assert torch.equal(y, BK.ballistics_plain(g, aa, ar, y0=y0))
+    rows = [torch.broadcast_to(a.reshape(2, -1, 1) if a.ndim == 1 else a, (2, 3, 1)).reshape(6) for a in (aa, ar)]
+    assert torch.equal(y.reshape(6, 700), BK.ballistics_rows_plain(g.reshape(6, 700), *rows, y0.reshape(6)))
     assert launches() == (a0, b0)
 
 
-def test_other_devices_raise():
+@pytest.mark.parametrize("shape", list(COEF_SHAPES))
+def test_ballistics_smooth_exact_is_the_plain_loop(shape):
+    """``ballistics_smooth(mode="exact")`` is ``ballistics_plain`` on the
+    same rows: value, final state and every gradient bitwise."""
+    from dasp_tpu_torch.ops.iir import ballistics_smooth
+
+    g0 = torch.tensor(make_g(bs=6, T=500, seed=3)).reshape(2, 3, 500)
+    y0 = -torch.rand(2, 3, generator=torch.Generator().manual_seed(5))
+    aa, ar = coefs(COEF_SHAPES[shape])
+    w = torch.randn(g0.shape, generator=torch.Generator().manual_seed(6))
+    got = []
+    for smooth in (lambda *a: ballistics_smooth(*a[:3], mode="exact", y0=(a[3], a[3]), return_yf=True),
+                   lambda *a: BK.ballistics_plain(*a, return_yf=True)):
+        leaves = [t.clone().requires_grad_() for t in (g0, aa, ar, y0)]
+        y, (ya, ym) = smooth(*leaves)
+        ((y * w).sum() + ya.sum() + 2.0 * ym.sum()).backward()
+        got.append([y, ym] + [t.grad for t in leaves])
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wrapper", ["sosfilt_pallas", "ballistics_pallas", "frac_delay_pallas"])
+def test_other_devices_raise(wrapper):
+    from dasp_tpu_torch.ops import frac_delay_kernel as FK
+
     x = torch.empty(2, 1, 64, device="meta")
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        IK.sosfilt_pallas(make_sos(2).to("meta"), x)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        BK.ballistics_pallas(x, torch.ones(2), torch.ones(2))
+    calls = {
+        "sosfilt_pallas": lambda: IK.sosfilt_pallas(make_sos(2).to("meta"), x),
+        "ballistics_pallas": lambda: BK.ballistics_pallas(x, torch.ones(2), torch.ones(2)),
+        "frac_delay_pallas": lambda: FK.frac_delay_pallas(x, torch.empty(1, 2, 32, device="meta"),
+                                                          torch.empty(1, 2, 32, device="meta"), 32, 32),
+    }
+    with pytest.raises(ValueError, match=f"{wrapper} runs on CPU or CUDA"):
+        calls[wrapper]()

@@ -551,3 +551,17 @@ def test_stream_errors():
         PS.sidechain_compressor_stream(torch.zeros((1, 1, 512)), SR, -30.0, 4.0, 1.0, 20.0, 1.0, 0.0)
     with pytest.raises(ValueError, match="smoother"):
         PS.compressor_stream(torch.zeros((1, 1, 512)), SR, -30.0, 4.0, 1.0, 20.0, 1.0, 0.0, smoother="fsm")
+
+
+def test_serving_loads_no_training_module():
+    """``import dasp_tpu_torch.streaming`` leaves the training steps (and the
+    models, losses and parallel layer they pull in) unloaded; the package's
+    ``train`` attribute still loads them on first use."""
+    import subprocess
+    import sys
+
+    code = ("import sys, dasp_tpu_torch.streaming\n"
+            "assert 'dasp_tpu_torch.train' not in sys.modules\n"
+            "import dasp_tpu_torch\n"
+            "assert dasp_tpu_torch.train.train_step\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
