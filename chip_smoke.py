@@ -25,8 +25,9 @@ its serving path at full width, and its examples on wav files:
   phase 4  the slice: full-width StyleTransferNet (bf16 encoder convolutions,
            eval mode) then EQ("pallas") -> Compressor("exact_pallas") ->
            NoiseShapedReverb(65536-tap IR) -> Gain on 3 batches of 8
-           (input, reference) pairs of 131072 samples; launch counts, output
-           checks, agreement with the plain path, per-batch latencies
+           (input, reference) pairs of 131072 samples; launch counts (kernel
+           E's 20 a batch among them), output checks, agreement with the
+           plain path, per-batch latencies
   phase 5  kernel A's gradient (save-all forward + adjoint cascade) at the
            EQ's shapes (6 sections, 7 in the adjoint), at a ragged T, the
            one-pole's and the 20 Hz / Q 6 shelf's: dsos and dx against
@@ -214,11 +215,23 @@ its serving path at full width, and its examples on wav files:
            clock) beside its bound and the block-state loop's times. Phase
            19 holds every stream to one D launch a chunk (the classic
            chain's EQ, the mastering chain's exciter)
+  phase 23 kernel E, one eval-mode TCN layer (conv, bias, PReLU, BatchNorm)
+           in one launch, at each of the style encoder's 20 layer shapes
+           at the render's merged batch (16 clips of 131072), the
+           activations chained layer to layer: against its plain version
+           (float64 sums) and cuDNN's path within TCN_DIFFER_SHARE's rule; the
+           kernel alone (profiler) and a call (CUDA events) beside its bound
+           (bf16 FLOPs over 989 TFLOP/s or bytes over 3.35 TB/s), the plain
+           version's time and cuDNN's conv + PReLU + BatchNorm as
+           library_ms (the port never calls it there); then the whole
+           StyleTransferNet forward at bs 8 on kernel E (20 launches) and
+           on cuDNN's path, and the parameters' gap between them
 
 Prints one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
-an H100 SXM's published peaks; no single PyTorch call computes any of these
-functions, so ``library_ms`` is null), then as its last line
+an H100 SXM's published peaks, or for kernel E its bf16 operations over 989
+TFLOP/s; no single PyTorch call computes any of the other functions, so
+their ``library_ms`` is null), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -226,7 +239,8 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 launches of the package in the checkout DIR (see :func:`time_ballistics`),
 ``--time-frac-delay-of DIR`` kernel C's (see :func:`time_frac_delay`),
 ``--time-style-step`` splits style_transfer's step (see
-:func:`time_style_step`), and ``--coupled-step`` runs phase 22 alone.
+:func:`time_style_step`), ``--coupled-step`` runs phase 22 alone and
+``--tcn-layer`` phase 23.
 """
 
 from __future__ import annotations
@@ -316,6 +330,14 @@ EFFECT_GRAD_FP32_TOL = 1e-2
 # TRAIN_GRAD_NORM_TOL of its norm; sosfilt_coupled within this of
 # max(1, peak) of float64 scipy
 COUPLED_TOL = 1e-5
+# phase 23: kernel E against its plain version and cuDNN's path, element by
+# element: all three round the convolution's output to bf16 and then add the
+# bias in bf16, but their sums run in another order and BatchNorm's affine
+# is grouped otherwise, so a bf16 rounding may land one ulp (2**-7 of the
+# value) apart where a value lies next to a rounding boundary: |diff| <=
+# 2**-7 (|gamma invstd| (2 |v| + |bias|) + |y|), v the value BatchNorm
+# normalized, on at most TCN_DIFFER_SHARE of the elements
+TCN_DIFFER_SHARE = 0.001
 MASTERING_PARAMS = 47
 # phase 15: the float64 reference ballistics against the plain loop over
 # this many samples
@@ -399,6 +421,8 @@ EXAMPLE_STEP_LAUNCHES["auto_eq resumed"] = EXAMPLE_STEP_LAUNCHES["auto_eq"]
 # and fp32 operations outside the tensor cores, per second
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# bf16 dense operations on the tensor cores
+BF16_OPS_PER_S = 989e12
 # and float64 operations outside the tensor cores
 FP64_OPS_PER_S = 34e12
 # fp32 operations per sample of a biquad section (5 multiplies, 4 adds)
@@ -440,6 +464,7 @@ LAUNCH_COUNTERS = {
     "ballistics_bwd": "kernel_b.backward",
     "frac_delay": "kernel_c.forward",
     "frac_delay_bwd": "kernel_c.backward",
+    "tcn_layer": "kernel_e.forward",
 }
 
 
@@ -779,7 +804,9 @@ def phase_kernel_b(rng, device):
 
 
 def phase_slice(seed, device, card):
-    """The style-transfer render at full width through kernels A and B."""
+    """The style-transfer render at full width through kernels A, B and E
+    (the encoder's 20 layers a batch, input and reference as one batch).
+    Returns kernel E's launches over the measured batches."""
     import torch
 
     from dasp_tpu_torch.models import StyleTransferNet, apply_style_chain, make_style_processors
@@ -846,6 +873,7 @@ def phase_slice(seed, device, card):
 
         print(f"[slice] launches during the {BATCHES} batches: {launches}")
         want = {k: BATCHES if k in ("sosfilt_cascade", "ballistics") else 0 for k in launches}
+        want["tcn_layer"] = 20 * BATCHES
         require(launches == want, f"render launches {launches}, expected {want}")
         for params, y in outs:
             require(tuple(y.shape) == (BS, 2, T), f"output shape {tuple(y.shape)}")
@@ -868,6 +896,7 @@ def phase_slice(seed, device, card):
         print(f"[slice] kernel path vs plain path: max abs diff {diff:.3e} "
               f"(tolerance {tol:.3e} = 2 x {A_BOUND} x output peak {peak:.3f})")
         require(diff <= tol, f"slice differs from the plain path by {diff:.3e} > {tol:.3e}")
+    return launches["tcn_layer"]
 
 
 def grad_errors(got, truth):
@@ -2956,6 +2985,142 @@ def phase_coupled_step(seed, device, card):
     return out
 
 
+def tcn_layer_gap(got, want, conv, bn):
+    """(share of elements that differ, largest gap over the rule's bound)
+    of kernel E's output against ``want`` (see TCN_DIFFER_SHARE)."""
+    import torch
+
+    scale = (bn.weight / torch.sqrt(bn.running_var + bn.eps)).detach()[:, None]
+    y = want.float()
+    v = (y - bn.bias.detach()[:, None]) / scale + bn.running_mean[:, None]
+    diff = (got.float() - y).abs()
+    bnd = 2.0**-7 * (scale.abs() * (2 * v.abs() + conv.bias.detach().abs()[:, None]) + y.abs())
+    return float((diff > 0).float().mean()), float((diff / bnd).max())
+
+
+def encoder_layers(net):
+    """The (conv, prelu, bn) of each of the encoder's layers, in order."""
+    return [tuple(getattr(blk, f"{n}{j}") for n in ("conv", "prelu", "bn")) for blk in net.encoder.blocks
+            for j in (0, 1)]
+
+
+def randomize_bn(net, gen):
+    """BatchNorm statistics and affine away from their defaults, so that
+    every term of kernel E's epilogue shows."""
+    import torch
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.1, 0.1, generator=gen)
+            elif isinstance(m, torch.nn.PReLU):
+                m.weight.uniform_(0.05, 0.3, generator=gen)
+
+
+def phase_tcn_layer(seed, device, card):
+    """Phase 23: kernel E at the style encoder's 20 layer shapes (the
+    render's 16 clips of 131072, activations chained from layer to layer)
+    against its plain version and cuDNN's path, its times beside its bound,
+    the plain version's and cuDNN's; then StyleTransferNet's forward at bs 8
+    on kernel E and on cuDNN's path. Returns the summed row of the 20
+    layers."""
+    import torch
+
+    from dasp_tpu_torch import models as M
+    from dasp_tpu_torch.models import tcn
+    from dasp_tpu_torch.ops import tcn_kernel as E
+
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    net = M.StyleTransferNet(dtype=torch.bfloat16).to(device).eval()
+    randomize_bn(net, gen)
+    on_card = tcn._on_card
+
+    def cudnn_path(fn):
+        tcn._on_card = lambda t: False
+        try:
+            return fn()
+        finally:
+            tcn._on_card = on_card
+
+    x = 0.3 * torch.randn((2 * BS, 1, T), generator=gen, device=device)
+    tot = {"ms": 0.0, "alone_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "alone_n": 0}
+    worst = 0.0
+    with torch.inference_mode():
+        for i, (conv, prelu, bn) in enumerate(encoder_layers(net)):
+            args = (conv.weight, conv.bias, prelu.weight, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                    bn.eps, conv.stride[0], conv.dilation[0])
+            reset_launch_counts()
+            y = E.tcn_layer(x, *args)
+            torch.cuda.synchronize()
+            n_launch = trace_counts().get("kernel_e.forward", 0)
+            require(n_launch == 1, f"kernel E layer {i}: {n_launch} launches")
+            t0 = time.perf_counter()
+            y_p = E.tcn_layer_plain(x, *args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            y_c = cudnn_path(lambda: net.encoder.blocks[i // 2]._layer(conv, prelu, bn, x))
+            gaps = {name: tcn_layer_gap(y, ref, conv, bn) for name, ref in (("plain", y_p), ("cuDNN", y_c))}
+            for name, (share, over) in gaps.items():
+                require(over <= 1.0 and share <= TCN_DIFFER_SHARE,
+                        f"kernel E layer {i} {tuple(x.shape)}: {share:.2e} of the elements differ from {name}'s, "
+                        f"the largest at {over:.3f} of the bound")
+            worst = max(worst, float((y.float() - y_p.float()).abs().max()))
+            fn = lambda: E.tcn_layer(x, *args)  # noqa: E731
+            alone = kernel_device_ms(fn, "tcn_layer", 20)
+            call = cuda_ms(fn, 20)
+            library = cuda_ms(lambda: cudnn_path(lambda: net.encoder.blocks[i // 2]._layer(conv, prelu, bn, x)), 20)
+            c_in, taps = conv.in_channels, conv.kernel_size[0]
+            rows = y.shape[0] * y.shape[2]
+            flops = 2 * rows * E.CHANNELS * c_in * taps
+            nbytes = 2 * (x.numel() + conv.weight.numel() + y.numel())
+            t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+            bnd = max(t_ops, t_bytes) * 1e3
+            print(f"[kernel E] layer {i} ({'conv0' if i % 2 == 0 else 'conv1'}, stride {conv.stride[0]}, dilation "
+                  f"{conv.dilation[0]}): {tuple(x.shape)} -> {tuple(y.shape)}; kernel alone {fmt_ms(alone)}, a call "
+                  f"{call:.4f} ms, bound {bnd:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}; "
+                  f"{flops / call / 1e9:.1f} TFLOP/s a call); plain {plain_ms:.1f} ms (host clock, float64 sums); "
+                  f"cuDNN's conv + PReLU + BatchNorm {library:.4f} ms; differ from plain / cuDNN on "
+                  f"{gaps['plain'][0]:.2e} / {gaps['cuDNN'][0]:.2e} of the elements, largest at "
+                  f"{gaps['plain'][1]:.3f} / {gaps['cuDNN'][1]:.3f} of the bound | {card}")
+            for k, v in (("ms", call), ("alone_ms", alone or 0.0), ("alone_n", alone is not None),
+                         ("plain_ms", plain_ms), ("library_ms", library), ("bound_ms", bnd)):
+                tot[k] += v
+            x = y
+            del y_p, y_c
+
+        inp = 0.3 * torch.randn((BS, 1, T), generator=gen, device=device)
+        ref = 0.3 * torch.randn((BS, 1, T), generator=gen, device=device)
+        reset_launch_counts()
+        p_e = net(inp, ref)
+        torch.cuda.synchronize()
+        counts = trace_counts()
+        require(counts.get("kernel_e.forward", 0) == 20 and counts.get("encoder.conv_layer", 0) == 20,
+                f"StyleTransferNet forward: {counts.get('kernel_e.forward', 0)} kernel E launches and "
+                f"{counts.get('encoder.conv_layer', 0)} layer calls, expected 20 and 20 (one merged pass)")
+        p_c = cudnn_path(lambda: net(inp, ref))
+        gap = max(float((p_e[k].double() - p_c[k].double()).abs().max()) for k in p_e)
+        after = cuda_ms(lambda: net(inp, ref), 20)
+        before = cuda_ms(lambda: cudnn_path(lambda: net(inp, ref)), 10)
+    print(f"[kernel E] the 20 layers at {2 * BS} x {T}: {tot['ms']:.3f} ms of calls, bound {tot['bound_ms']:.3f} ms; "
+          f"kernel alone {tot['alone_ms']:.3f} ms over the {tot['alone_n']} layers the profiler recorded; cuDNN's path "
+          f"{tot['library_ms']:.3f} ms | {card}")
+    print(f"[kernel E] StyleTransferNet forward, {BS} pairs of {T}: on kernel E {after:.3f} ms, on cuDNN's path "
+          f"{before:.3f} ms (CUDA events); normalized parameters {gap:.3e} apart | {card}")
+    require(gap <= 1.5e-3, f"StyleTransferNet's parameters on kernel E {gap:.3e} from cuDNN's path > 1.5e-3")
+    return {"err": worst, "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations", "library_ms": tot["library_ms"], "forward_ms": after,
+            "forward_cudnn_ms": before}
+
+
+def trace_counts() -> dict:
+    from dasp_tpu_torch import trace
+
+    return trace.snapshot()["counts"]
+
+
 def run_example(name, argv):
     """``dasp_tpu_torch.examples.<name>.main(argv)``, its output printed
     with a prefix and returned, with its launches and wall time."""
@@ -3660,6 +3825,7 @@ def main() -> int:
     ap.add_argument("--time-style-step", action="store_true",
                     help="only split style_transfer's step (see time_style_step)")
     ap.add_argument("--coupled-step", action="store_true", help="only run phase 22 (kernel D)")
+    ap.add_argument("--tcn-layer", action="store_true", help="only run phase 23 (kernel E)")
     args = ap.parse_args()
 
     import torch
@@ -3696,6 +3862,9 @@ def main() -> int:
     if args.coupled_step:
         phase_coupled_step(args.seed, device, card)
         return 0
+    if args.tcn_layer:
+        phase_tcn_layer(args.seed, device, card)
+        return 0
     log = _build.build_log()
     if log:  # ptxas -v: per kernel instantiation
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -3706,7 +3875,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     res_a = phase_kernel_a(rng, device)
     res_b = phase_kernel_b(rng, device)
-    phase_slice(args.seed, device, card)
+    render_e_launches = phase_slice(args.seed, device, card)
     res_adj = phase_adjoint_a(rng, device)
     res_bb = phase_ballistics_bwd(rng, device)
     launches, train_ctx = phase_training(args.seed, device, card)
@@ -3729,6 +3898,8 @@ def main() -> int:
     for k, v in phase_parallel(args.seed, device, card).items():
         launches[k] = launches.get(k, 0) + v
     res_d = phase_coupled_step(args.seed, device, card)
+    res_e = phase_tcn_layer(args.seed, device, card)
+    launches["tcn_layer"] = render_e_launches
 
     a, adj = res_a["S=6 (EQ)"], res_adj["S=6 (EQ)"]
     rows = [
@@ -3742,11 +3913,12 @@ def main() -> int:
         ("frac_delay", "frac_delay.cu", "dasp_tpu/ops/pallas_interp.py:96", res_c[configs[0][0]]),
         ("frac_delay_bwd", "frac_delay_bwd.cu", "dasp_tpu/ops/pallas_interp.py:135", res_cb[configs[0][0]]),
         ("sosfilt_coupled_step", "sosfilt_coupled_step.cu", None, res_d),
+        ("tcn_layer", "tcn_layer.cu", None, res_e),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{src}", "replaces": tpu,
          "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for name, src, tpu, r in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

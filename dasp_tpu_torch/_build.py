@@ -45,6 +45,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _T = ctypes.c_longlong
+_F = ctypes.c_float
 # entry point -> (argtypes, restype)
 _SIGNATURES = {
     "sosfilt_cascade_f32": ([_P, _P, _P, _I, _I, _T, _P, _P, _P], _I),
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "frac_delay_bwd_f32": ([_P] * 7 + [_I, _I, _I, _T, _I, _I, _P], _I),
     "sosfilt_coupled_step_f32": ([_P] * 5 + [_I, _I, _T, _P], _I),
     "sosfilt_coupled_step_f64": ([_P] * 5 + [_I, _I, _T, _P], _I),
+    "tcn_layer_bf16": ([_P] * 9 + [_F] + [_I] * 7 + [_P], _I),
 }
 
 _log = {"nvcc": ""}

@@ -57,7 +57,8 @@ class StyleTransferNet(nn.Module):
     normalized parameters ``{"equalizer": (bs, 18), "compressor": (bs, 6),
     "reverb": (bs, 25), "gain": (bs, 1)}``. ``dtype=torch.bfloat16`` runs
     the encoder's convolutions in bf16. Train/eval mode is the module's
-    (``net.eval()`` uses the BatchNorm running statistics).
+    (``net.eval()`` uses the BatchNorm running statistics). The clips pass
+    the encoder by :meth:`Encoder.pair`.
     """
 
     def __init__(self, embed_dim: int = 512, ch_dim: int = 256,
@@ -75,7 +76,7 @@ class StyleTransferNet(nn.Module):
 
     def forward(self, inp: torch.Tensor, ref: torch.Tensor) -> Dict[str, torch.Tensor]:
         with span("style.net"):
-            z = torch.cat([self.encoder(inp), self.encoder(ref)], dim=-1)
+            z = torch.cat(self.encoder.pair(inp, ref), dim=-1)
             return {name: proj(z) for name, proj in self.projectors.items()}
 
 

@@ -19,6 +19,16 @@ statistics and normalization are taken in fp32 and whose output is cast
 back to bf16, so activations stay bf16 from one convolution to the next.
 Parameters and statistics stay fp32; the encoder's time mean is taken in
 fp32.
+
+Kernel E: a layer in eval mode, in bf16, on a CUDA tensor and with no
+autograd (grad disabled, or nothing that requires grad) runs as one launch
+of ``ops.tcn_kernel.tcn_layer`` where that kernel takes its shapes (256
+output channels; in the encoder every layer): flax's rounding, the
+convolution's output rounded to bf16 before the bias is added (as cuDNN's
+path on the card does; the CPU's convolution adds the bias before it
+rounds), the activations channels-last from one layer to the next (an NCW
+shape over NWC memory). Every other call, training's above all, keeps the
+path above.
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as nnf
 from torch import nn
+
+from ..ops import tcn_kernel
+from ..trace import count
 
 __all__ = ["BatchNorm", "sync_batch_norm", "TCNBlock", "ParameterNetwork", "Encoder", "ParameterProjector"]
 
@@ -109,6 +122,10 @@ class BatchNorm(nn.BatchNorm1d):
         )
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
 def sync_batch_norm(module: nn.Module, group) -> nn.Module:
     """Set every :class:`BatchNorm` of ``module`` to take its train-mode
     statistics over the ranks of ``group`` (None: each rank's own batch);
@@ -140,6 +157,17 @@ class TCNBlock(nn.Module):
         self.bn1 = BatchNorm(out_channels)
 
     def _layer(self, conv: nn.Conv1d, prelu: nn.PReLU | None, bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+        count("encoder.conv_layer")
+        slope = None if prelu is None else prelu.weight
+        stride, dilation = conv.stride[0], conv.dilation[0]
+        # kernel E: a CUDA tensor, bf16 compute, eval mode, no autograd (grad
+        # disabled, or nothing that requires grad) and a shape it takes
+        inputs = (x, conv.weight, conv.bias, bn.weight, bn.bias) + (() if slope is None else (slope,))
+        autograd = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+        if (_on_card(x) and self.dtype == torch.bfloat16 and not self.training and not bn.training
+                and not autograd and tcn_kernel.accepts(x, conv.weight, stride, dilation)):
+            return tcn_kernel.tcn_layer(x, conv.weight, conv.bias, slope, bn.running_mean, bn.running_var, bn.weight,
+                                        bn.bias, bn.eps, stride, dilation)
         if self.dtype is None:
             h = conv(x)
         else:
@@ -247,6 +275,16 @@ class Encoder(nn.Module):
         h = torch.relu(self.dense0(h))
         h = torch.relu(self.dense1(h))
         return self.dense2(h)
+
+    def pair(self, inp: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The embeddings of two clips. In eval mode on the card, where the
+        clips have one shape, they pass as one batch: eval-mode BatchNorm is
+        per clip, so that is exact, and it halves the launches. On the CPU,
+        where there are no launches to save, each passes alone, so that its
+        sums keep their order."""
+        if not self.training and inp.shape == ref.shape and _on_card(inp):
+            return self(torch.cat([inp, ref])).chunk(2)
+        return self(inp), self(ref)
 
 
 class ParameterProjector(nn.Module):

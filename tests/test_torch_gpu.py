@@ -30,7 +30,11 @@ channels, misaligned rows, delays drawn at random). The coupled cascade's
 stream step kernel (D) against its plain float64 loop within one fp32 ulp
 of the peak (float32 rows; 1e-12 on float64 rows), chained over 64 chunks
 against the offline cascade within the stream tests' 5e-4, one launch a
-stream step and none for a differentiable or offline call.
+stream step and none for a differentiable or offline call. The eval-mode
+TCN layer kernel (E) against cuDNN's path at each of the style encoder's 20
+layer shapes at bs 8 (the rule and its reason at
+``test_kernel_e_matches_cudnn_at_the_encoder_layer_shapes``), 20 launches a
+StyleTransferNet forward in eval mode and none in training.
 """
 
 import numpy as np
@@ -40,12 +44,14 @@ import torch
 
 from dasp_tpu_torch import functional as F
 from dasp_tpu_torch import trace
+from dasp_tpu_torch.models import StyleTransferNet, tcn
 from dasp_tpu_torch.modules import ParametricEQ
 from dasp_tpu_torch.ops import ballistics_kernel as BK
 from dasp_tpu_torch.ops import frac_delay_kernel as FK
 from dasp_tpu_torch.ops import iir as I
 from dasp_tpu_torch.ops import iir_kernel as IK
 from dasp_tpu_torch.ops import iir_stream_kernel as DK
+from dasp_tpu_torch.ops import tcn_kernel as EK
 from dasp_tpu_torch.ops.biquad import biquad
 
 SR = 44100
@@ -684,3 +690,87 @@ def test_kernel_d_is_not_launched_outside_a_plain_stream_step(cuda, call):
     if call != "offline":
         out.square().sum().backward()
         assert torch.isfinite((sos if call == "params_require_grad" else x).grad).all()
+
+
+# the style encoder: 10 blocks of a stride-2 convolution (dilation d) and an
+# undilated one, kernel 7, 256 channels, on clips of 131072
+ENCODER_DILATIONS = (1, 2, 4, 8, 16, 1, 2, 4, 8, 16)
+
+
+def encoder_layer(i, n=131072):
+    """(C_in, T_in, dilation, which conv of its block) of encoder layer i."""
+    for k in range(i):
+        n = EK.out_len(n, 7, 2, ENCODER_DILATIONS[k // 2]) if k % 2 == 0 else EK.out_len(n, 7, 1, 1)
+    return (1 if i == 0 else 256), n, ENCODER_DILATIONS[i // 2], i % 2
+
+
+def random_bn_(module, gen):
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.1, 0.1, generator=gen)
+            elif isinstance(m, torch.nn.PReLU):
+                m.weight.uniform_(0.05, 0.3, generator=gen)
+    return module
+
+
+@pytest.mark.parametrize("layer", range(20))
+def test_kernel_e_matches_cudnn_at_the_encoder_layer_shapes(cuda, monkeypatch, layer):
+    """Kernel E (one launch) against cuDNN's path (bf16 conv1d, bias,
+    PReLU, BatchNorm: the module's path with the device test answering no)
+    at encoder layer ``layer`` on 8 clips. Both round the convolution's
+    output to bf16 and then add the bias in bf16 (cuDNN's path adds it in a
+    pass of its own); their fp32 sums run in another order, and BatchNorm's
+    affine is grouped otherwise, so a bf16 rounding may land one ulp (2**-7
+    of the value) apart where a value lies next to a rounding boundary:
+    each element within 2**-7 (|gamma invstd| (2 |v| + |bias|) + |y|), v the
+    value BatchNorm normalized, and at most 0.1 % of them apart."""
+    c_in, n, d, which = encoder_layer(layer)
+    gen = torch.Generator(device=cuda).manual_seed(layer)
+    blk = random_bn_(tcn.TCNBlock(c_in, 256, 7, d, "prelu", dtype=torch.bfloat16).to(cuda).eval(), gen)
+    conv, prelu, bn = (getattr(blk, f"{m}{which}") for m in ("conv", "prelu", "bn"))
+    x = (0.5 * torch.randn((8, conv.in_channels, n), generator=gen, device=cuda)).to(torch.bfloat16)
+    x = x.transpose(1, 2).contiguous().transpose(1, 2)  # channels-last, as the layer before leaves it
+    with torch.inference_mode():
+        before = launches("kernel_e.forward")
+        y = blk._layer(conv, prelu, bn, x)
+        torch.cuda.synchronize()
+        assert launches("kernel_e.forward") - before == 1
+        monkeypatch.setattr(tcn, "_on_card", lambda t: False)
+        want = blk._layer(conv, prelu, bn, x)
+    assert launches("kernel_e.forward") - before == 1
+    assert y.shape == want.shape and y.dtype == want.dtype == torch.bfloat16
+    scale = (bn.weight / torch.sqrt(bn.running_var + bn.eps))[:, None]
+    yw = want.float()
+    v = (yw - bn.bias[:, None]) / scale + bn.running_mean[:, None]
+    diff = (y.float() - yw).abs()
+    assert float((diff > 0).float().mean()) <= 0.001
+    assert bool((diff <= 2.0**-7 * (scale.abs() * (2 * v.abs() + conv.bias.abs()[:, None]) + yw.abs())).all())
+
+
+def test_kernel_e_launches_once_a_layer_of_a_style_net_forward(cuda, monkeypatch):
+    """An eval-mode StyleTransferNet forward runs its 20 layers on kernel E,
+    input and reference as one batch (20 layer calls), and its parameters
+    stay within the render's limit (1.5e-3) of cuDNN's path; training runs
+    every layer of both passes on cuDNN's path (40 layer calls, no launch)."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    net = random_bn_(StyleTransferNet(dtype=torch.bfloat16).to(cuda).eval(), gen)
+    inp, ref = (0.3 * torch.randn((2, 1, 131072), generator=gen, device=cuda) for _ in range(2))
+    trace.reset()
+    with torch.inference_mode():
+        p = net(inp, ref)
+        torch.cuda.synchronize()
+        assert launches("kernel_e.forward") == 20 and launches("encoder.conv_layer") == 20
+        monkeypatch.setattr(tcn, "_on_card", lambda t: False)
+        want = net(inp, ref)
+    assert max(float((p[k] - want[k]).abs().max()) for k in p) <= 1.5e-3
+    monkeypatch.undo()
+    net.train()
+    trace.reset()
+    out = net(inp, ref)
+    sum(v.sum() for v in out.values()).backward()
+    torch.cuda.synchronize()
+    assert launches("kernel_e.forward") == 0 and launches("encoder.conv_layer") == 40
