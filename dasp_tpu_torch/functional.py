@@ -79,7 +79,7 @@ from .ops.iir import (
 )
 from .ops.iir_kernel import lfilter1_pallas, sosfilt_pallas
 from .ops.tv_filter import tv_analysis_window, tv_frame_centers, tv_frame_count, tv_freq_filter, tv_istft, tv_stft
-from .trace import span
+from .trace import count, span
 
 __all__ = [
     "db_to_linear",
@@ -1466,6 +1466,10 @@ def _frac_delay_matmul(x, taps, dmax: float, block: int, chunk: int = 8,
             call; the JAX package's window thresholds were measured on a
             TPU and do not apply. The JAX package's "hybrid" adjoint is not
             ported (ROADMAP.md, "Not to port") and raises.
+
+    Each call adds one to the always-on counter ``frac_delay.call``
+    (:mod:`~dasp_tpu_torch.trace`), on either adjoint, beside the kernel's
+    own ``kernel_c.forward`` launch counter.
     """
     bs, chs, T = x.shape
     B = int(block)
@@ -1478,6 +1482,7 @@ def _frac_delay_matmul(x, taps, dmax: float, block: int, chunk: int = 8,
         )
     if adjoint not in ("pallas", "ad"):
         raise ValueError(f"Unknown adjoint: {adjoint!r}. Expected 'auto', 'pallas' or 'ad'.")
+    count("frac_delay.call")
     x_ext, d_stk, g_stk = _frac_delay_operands(x, taps, Dm, B)
     if adjoint == "pallas":
         wet = frac_delay_pallas(x_ext, d_stk, g_stk, B, Dm)

@@ -23,8 +23,9 @@ autograd engine's threads count too). The kernel engines count
 their launches with it (``kernel_a.forward``, ``kernel_a.save_all``,
 ``kernel_a.adjoint``, ``kernel_b.forward``, ``kernel_b.backward``,
 ``kernel_c.forward``, ``kernel_c.backward``, ``kernel_d.forward``,
-``kernel_e.forward``), and ``TCNBlock`` its layer calls on either path
-(``encoder.conv_layer``).
+``kernel_e.forward``), ``TCNBlock`` its layer calls on either path
+(``encoder.conv_layer``) and ``functional._frac_delay_matmul`` its calls
+on either adjoint (``frac_delay.call``).
 
 :func:`snapshot` returns both tables, :func:`reset` clears them. Nothing is
 written to disk.

@@ -256,9 +256,12 @@ def blind_estimation_loss(net: torch.nn.Module, processor, x: torch.Tensor, y: t
         ``(loss, p_hat)``.
     """
     net.train()
-    p_hat = net(y)
-    y_hat = processor.process_normalized(x, p_hat, clip_params=True, **effect_kwargs)
-    return stft_loss(y_hat, y, auraloss_compat=auraloss_compat), p_hat
+    with span("blind.net"):
+        p_hat = net(y)
+    with span("blind.render"):
+        y_hat = processor.process_normalized(x, p_hat, clip_params=True, **effect_kwargs)
+    with span("blind.loss"):
+        return stft_loss(y_hat, y, auraloss_compat=auraloss_compat), p_hat
 
 
 def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Optimizer,
@@ -276,14 +279,23 @@ def blind_estimation_step(net: torch.nn.Module, processor, opt: torch.optim.Opti
     Returns:
         ``(loss, param_l1)``, detached: the STFT loss and the mean absolute
         error of the predicted normalized parameters (before the update).
+
+    Under a torch profiler the step opens the spans (:mod:`~dasp_tpu_torch.
+    trace`) ``blind.step``, and inside it ``blind.target`` (the target's
+    render, no gradient), ``blind.net``, ``blind.render`` and ``blind.loss``
+    (in :func:`blind_estimation_loss`), ``blind.backward`` (``zero_grad``
+    and ``loss.backward()``) and ``blind.optimizer``.
     """
-    with torch.no_grad():
-        y = processor.process_normalized(x, rand_params, clip_params=True)
-    loss, p_hat = blind_estimation_loss(net, processor, x, y, auraloss_compat)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
-    param_l1 = torch.mean(torch.abs(p_hat.detach() - rand_params))
+    with span("blind.step"):
+        with span("blind.target"), torch.no_grad():
+            y = processor.process_normalized(x, rand_params, clip_params=True)
+        loss, p_hat = blind_estimation_loss(net, processor, x, y, auraloss_compat)
+        with span("blind.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("blind.optimizer"):
+            opt.step()
+        param_l1 = torch.mean(torch.abs(p_hat.detach() - rand_params))
     return loss.detach(), param_l1
 
 
